@@ -8,6 +8,13 @@ mask ``(M,)``. The reference keeps them as numpy arrays on the host;
 tensors, :func:`to_reference` goes the other way. A mapping converts
 key by key; the key ``"src_mask"`` holds a pool mask and must match the
 ``"src"`` pool beside it.
+
+Language models: :func:`lm_from_reference` builds the port's
+:class:`~repro_torch.models.model.Model` from the reference's parameter
+leaves, a mapping from ``/``-joined tree path to numpy array (what
+``repro.checkpoint.save_checkpoint`` writes and
+:func:`repro_torch.checkpoint.load_checkpoint` reads back), e.g.
+``layers/attn/wq`` of shape (L, D, H, hd), split across the port's layers.
 """
 from __future__ import annotations
 
@@ -57,6 +64,29 @@ def from_reference(arrays: Any, device="cuda") -> Any:
         return {k: torch.tensor(a, device=dev) for k, a in arrays.items()}
     _check_model("model", arrays)
     return torch.tensor(arrays, device=dev)
+
+
+def reference_tensor(a) -> torch.Tensor:
+    """A reference array as a CPU tensor, bit for bit. A bfloat16 leaf
+    (``ml_dtypes.bfloat16``, or the 2-byte void dtype ``np.load`` gives it
+    back as) goes through an int16 view, never through float."""
+    a = np.array(a)              # a writable copy: torch shares its memory
+    if a.dtype.itemsize == 2 and (a.dtype.kind == "V"
+                                  or a.dtype.name == "bfloat16"):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_from_reference(cfg, arrays: Mapping[str, Any], device="cuda",
+                      dtype=None):
+    """The port's model for ``cfg`` (on ``device``, in ``dtype`` or the
+    config's) holding the reference's weights ``arrays`` (module doc).
+    Raises on a missing, unexpected or misshapen leaf."""
+    from repro_torch.models.model import Model
+
+    model = Model(cfg, device=device, dtype=dtype)
+    return model.load_params({k: reference_tensor(a)
+                              for k, a in arrays.items()})
 
 
 def to_reference(tensors: Any) -> Any:

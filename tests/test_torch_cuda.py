@@ -1,24 +1,29 @@
-"""Card-only tests of the port: the hand-written CUDA kernel against its
-plain PyTorch version, and the port on the card against the port on the
-CPU. Every test here is marked ``cuda`` and skips (with its reason) where
+"""Card-only tests of the port: the hand-written CUDA kernels against
+their plain PyTorch versions, and the port on the card against the port
+on the CPU (the HTL scenarios, and the reduced llama3.2-3b in float32). Every test here is marked ``cuda`` and skips (with its reason) where
 CUDA is absent; this file imports neither JAX nor ``repro``, so it runs on
 a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the kernel within rtol 1e-5 and an atol floor of 1e-5 of the
-plain version (float32, other summation order), bitwise equal across
+Tolerances: ``loo_trials`` within rtol 1e-5 and an atol floor of 1e-5 of
+the plain version (float32, other summation order), bitwise equal across
 launches; whole scenarios with ledgers exactly equal and F1 within the
-port's bound of 5e-3 (PERF.md)."""
+port's bound of 5e-3 (PERF.md); ``flash_attention`` within the JAX sweep's
+max abs 2e-5 (float32) and 2e-2 (bfloat16) of its plain version, bitwise
+equal across launches; the reduced LM's logits within 1e-5 relative."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import KERNEL_SHAPES, kernel_inputs
+from chip_smoke import (FLASH_EXTRA, FLASH_TOL, KERNEL_SHAPES,
+                        REDUCED_LOGIT_RTOL, flash_inputs, flash_kwargs,
+                        kernel_inputs, reduced_card_vs_cpu)
 from repro_torch.core import scenario
 from repro_torch.data.synthetic_covtype import make_covtype_like
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import loo_trials as loo
 
 pytestmark = pytest.mark.cuda
@@ -66,3 +71,59 @@ def test_scenario_on_the_card_matches_the_cpu(cuda, algo, tech):
     assert on_card.ledger.events == on_cpu.ledger.events
     np.testing.assert_allclose(on_card.f1_curve, on_cpu.f1_curve, rtol=0,
                                atol=5e-3)
+
+
+FLASH_SHAPES = [(1, 24, 8, 777, 777, 128, True, 0, 0, "bfloat16")] + \
+    FLASH_EXTRA
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=[str(s) for s in FLASH_SHAPES])
+def test_flash_kernel_matches_plain_version(cuda, shape):
+    q, k, v = flash_inputs(shape, seed=200, device=cuda)
+    kw = flash_kwargs(shape)
+    before = fa.launches
+    out = fa.flash_attention_bshd(q, k, v, **kw)
+    again = fa.flash_attention_bshd(q, k, v, **kw)
+    assert fa.launches == before + 2
+    ref = fa.flash_attention_bshd_ref(q, k, v, **kw)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert float((out.float() - ref.float()).abs().max()) <= \
+        FLASH_TOL[shape[9]]
+    assert torch.equal(out, again)
+    # the (B,H,S,d) layout reads the same tensors through other strides
+    bhsd = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), **kw)
+    assert torch.equal(bhsd.transpose(1, 2), out)
+
+
+def test_flash_wrapper_refuses_what_it_cannot_run(cuda):
+    q, k, v = flash_inputs((1, 4, 2, 16, 16, 48, True, 0, 0, "float32"),
+                           seed=0, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bshd(q, k, v)
+    q, k, v = flash_inputs((1, 4, 2, 16, 16, 32, True, 0, 0, "float32"),
+                           seed=0, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bshd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match=">= 0"):
+        fa.flash_attention_bshd(q, k, v, q_offset=-1)
+
+
+def test_reduced_lm_on_the_card_matches_the_cpu(cuda):
+    assert max(reduced_card_vs_cpu(seed=4)) <= REDUCED_LOGIT_RTOL
+
+
+def test_flash_kernel_unaligned_bfloat16_takes_the_cuda_core_kernel(cuda):
+    """bfloat16 rows that are not 16-byte aligned (here every row starts one
+    element, 2 bytes, into a wider buffer) run the CUDA-core kernel: still
+    within the bfloat16 bound of the plain version."""
+    shape = (2, 8, 4, 300, 300, 64, True, 0, 0, "bfloat16")
+    wide = flash_inputs((2, 8, 4, 300, 300, 65, True, 0, 0, "bfloat16"),
+                        seed=3, device=cuda)
+    q, k, v = (t[..., 1:] for t in wide)
+    assert q.data_ptr() % 16 != 0
+    out = fa.flash_attention_bshd(q, k, v)
+    ref = fa.flash_attention_bshd_ref(q, k, v)
+    assert float((out.float() - ref.float()).abs().max()) <= \
+        FLASH_TOL[shape[9]]

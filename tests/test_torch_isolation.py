@@ -6,6 +6,7 @@ import os
 import pkgutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -28,12 +29,21 @@ def test_port_modules_import_without_jax_or_repro():
     names = _port_modules()
     assert {"repro_torch.core.greedytl", "repro_torch.core.convert",
             "repro_torch.kernels.loo_trials",
-            "repro_torch.data.mobility"} <= set(names)
+            "repro_torch.data.mobility", "repro_torch.configs",
+            "repro_torch.sharding.partitioning", "repro_torch.data.pipeline",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.models.blocks", "repro_torch.models.model",
+            "repro_torch.serving.cache_utils", "repro_torch.serving.engine",
+            "repro_torch.serving.scheduler", "repro_torch.launch.serve",
+            "repro_torch.checkpoint.checkpointer"} <= set(names)
     code = "\n".join(
         ["import importlib, sys"]
         + [f"importlib.import_module({n!r})" for n in names]
         + ["import chip_smoke",
            "from chip_smoke import kernel_inputs, kernel_cost, compare",
+           "from chip_smoke import (flash_inputs, flash_cost, flash_pairs,",
+           "    PrefillTally, PlainAttention, batcher_requests,",
+           "    reduced_card_vs_cpu, phase_flash, phase_serve)",
            "bad = sorted(m for m in sys.modules",
            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))",
            "assert not bad, bad",
@@ -78,3 +88,52 @@ def test_package_turns_tf32_off():
 
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_serving_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import lm_from_reference
+    from repro_torch.data.pipeline import TokenStream, make_lm_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.scheduler import ContinuousBatcher
+
+    cfg = get_config("llama3.2-3b").reduced()
+    cpu_model = build_model(cfg, device="cpu").init(0)
+    cuda = torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: build_model(cfg),
+        lambda: lm_from_reference(cfg, {}),
+        lambda: make_lm_batch(cfg.vocab_size, 1, 4),
+        lambda: next(TokenStream(cfg.vocab_size).batches(1, 4)),
+        lambda: serve.main(["--arch", "llama3.2-3b", "--run"]),
+        # a model that lives on the card (stand-in: no card here)
+        lambda: ServeEngine(types.SimpleNamespace(device=cuda)),
+        lambda: ContinuousBatcher(types.SimpleNamespace(device=cuda)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # asking for the CPU works everywhere
+    out = serve.main(["--arch", "llama3.2-3b", "--run", "--device", "cpu"])
+    assert tuple(out.shape) == (2, 8)
+    assert ContinuousBatcher(cpu_model, slots=2).slots == 2
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        serve.main(["--arch", "llama3.2-3b"])
+
+
+def test_unported_families_raise_naming_their_roadmap_item():
+    import dataclasses
+
+    from repro_torch.configs import NOT_PORTED, get_config
+    from repro_torch.models import build_model
+
+    for arch in NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            get_config(arch)
+    ssm = dataclasses.replace(get_config("llama3.2-3b").reduced(),
+                              name="mamba2-1.3b", family="ssm")
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        build_model(ssm, device="cpu")
