@@ -8,36 +8,54 @@ Phases, in order, each printing one JSON line with its seconds; any
 failure raises and the script exits non-zero without printing a result:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build — compile both CUDA kernels (``loo_trials``, ``flash_attention``)
-   from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
-   ``nvcc`` per source, all started together;
+2. build — compile all four CUDA kernels (``loo_trials``,
+   ``flash_attention``, ``ssd_scan``, ``rglru_scan``) from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
+   ``nvcc`` per source, all started together, and print their ``ptxas``
+   lines;
 3. kernel — ``loo_trials`` against its plain PyTorch version on the card at
    every main-path shape (rtol 1e-5, atol floor 1e-5), two launches
    bitwise equal, and CUDA-event times of kernel, plain version and bound;
 4. flash — ``flash_attention`` against its plain version at every shape
-   the serve phase gives it (llama3.2-3b: H 24, KV 8, d 128, bfloat16,
-   causal; B 4 x S 2048 and B 1 at each batcher prompt length) plus
-   float32, a 512 window, MQA, d 32/64/256, non-causal and q_offset > 0
-   (max abs error 2e-5 in float32, 2e-2 in bfloat16: the JAX sweep's
-   bounds), two launches bitwise equal; kernel, plain,
-   ``scaled_dot_product_attention`` (library, never on the path) and bound
-   times;
-5. smoke — the ``smoke`` preset (4 windows, 2 seeds) against
+   the serve phases give it (llama3.2-3b: H 24, KV 8, d 128, causal;
+   recurrentgemma-9b: H 16, KV 1, d 256, window 2048; bfloat16, B 4 x
+   S 2048 and B 1 at each batcher prompt length) plus float32, a 512
+   window, d 32/64, non-causal and q_offset > 0 (max abs error 2e-5 in
+   float32, 2e-2 in bfloat16: the JAX sweep's bounds), two launches
+   bitwise equal; kernel, plain, ``scaled_dot_product_attention``
+   (library, never on the path) and bound times;
+5. ssd — ``ssd_scan`` against its plain version (``ssd_chunked``) at
+   mamba2-1.3b's prefill shapes (H 64, P 64, N 128, chunk 256; B 4 x
+   S 2048 in bfloat16 and float32, B 1 at each batcher prompt length, which
+   the chunk does not divide) and the JAX sweep's four shapes, the latter
+   also against the sequential oracle (relative error 3e-5 in float32,
+   5e-2 in bfloat16, on y and on the state), two launches bitwise equal;
+6. rglru — ``rglru_scan`` against its plain version and the sequential
+   oracle at recurrentgemma-9b's prefill shapes (W 4096, float32; B 4 x
+   S 2048 and B 1 at each batcher prompt length) and the JAX sweep's four
+   shapes (max abs error 1e-4);
+7. smoke — the ``smoke`` preset (4 windows, 2 seeds) against
    ``tests/golden/smoke_golden.json``;
-6. paper — the 32-label ``paper_tables`` grid at the paper's data size
+8. paper — the 32-label ``paper_tables`` grid at the paper's data size
    (30 windows, 1 seed, fleet engine, stacked) against
    ``results/benchmarks/paper_tables.json``; the main-path run whose
    ``loo_trials`` launches are counted;
-7. serve — llama3.2-3b at full width and depth in bfloat16 (weights from
-   the port's seeded initialiser): ``ServeEngine.generate`` on 4 prompts
-   of 2048 tokens (32 new), then a ``ContinuousBatcher`` with 4 slots
-   answering 8 requests of mixed lengths; the main-path run whose
-   ``flash_attention`` launches are counted (28 per prefill). Then, not
-   counted: prefill logits with the kernel against the plain version
-   swapped in, one-step decode against a full prefill, and the kernel's
-   share of prefill device time (``torch.profiler``);
-8. reduced — the reduced llama3.2-3b config in float32, the port on the
-   card against the port on the CPU with the same weights.
+9.-11. serve — llama3.2-3b, mamba2-1.3b and recurrentgemma-9b, one at a
+   time, each at full width and depth in bfloat16 (weights from the port's
+   seeded initialiser) and freed before the next loads:
+   ``ServeEngine.generate`` on 4 prompts of 2048 tokens (32 new), then a
+   ``ContinuousBatcher`` with 4 slots answering 8 requests of mixed
+   lengths; the main-path runs whose kernel launches are counted
+   (``flash_attention`` 28 per llama prefill and 12 per recurrentgemma
+   prefill, ``ssd_scan`` 48 per mamba2 prefill, ``rglru_scan`` 26 per
+   recurrentgemma prefill). Then, not counted: prefill logits with the
+   kernels against the plain versions swapped in, one-step decode against
+   a full prefill, and each kernel's share of prefill device time
+   (``torch.profiler``);
+12. reduced — the reduced llama3.2-3b, mamba2-1.3b and recurrentgemma-9b
+   (5 layers: one period with attention, two tail layers) configs in
+   float32, the port on the card against the port on the CPU with the
+   same weights.
 
 Then the whole script's seconds, the ``{"kernels": [...]}`` line and,
 last, the ``{"ok": true, ...}`` line. Imports neither JAX nor the JAX package ``repro``.
@@ -77,26 +95,50 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PEAK_FLOPS_PER_S = {"bfloat16": 989e12,    # H100 SXM tensor cores, dense
                     "float32": F32_FLOPS_PER_S}
 FLASH_REPS = 10
-# The serve phase: llama3.2-3b at full width and depth, bfloat16.
-SERVE_ARCH = "llama3.2-3b"
+# The serve phases: each model at full width and depth, bfloat16.
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 BATCHER_PROMPTS = (64, 129, 250, 511, 777, 1024, 1500, 2000)
 BATCHER_BUDGETS = (32, 8, 24, 16, 32, 12, 20, 28)
-BATCHER_SLOTS, BATCHER_MAX_LEN = 4, 2112
-# Relative logit error (max |a - b| / max |b|) between two bfloat16 runs of
-# the full model: kernel vs plain attention in prefill, and one-step decode
-# (chunked attention) vs prefill. Each bfloat16 run drifts from its float32
-# twin by up to 5.2e-2 (scripts/torch_serve_numerics.py on the H100; the
-# same comparisons in float32 agree to 1.7e-5), so two of them may lie up
-# to twice that apart.
-SERVE_LOGIT_RTOL = 1e-1
-# The reduced float32 config, card against CPU: other summation orders.
+# recurrentgemma's batcher: prompts at least its 2048 attention window (a
+# shorter prompt gets a window cache that rolls too early and cannot be
+# spliced beside one of another length, in both packages: ROADMAP Queue 3)
+HYBRID_PROMPTS = (2048, 2100, 2300, 2500, 2650, 2800, 2900, 3000)
+BATCHER_SLOTS = 4
+# Per served arch: its batcher's prompts and cache budget, the launches of
+# each kernel of its prefill per prefill call, and the bound on the
+# relative logit error (max |a - b| / max |b|) between two bfloat16 runs
+# of the full model: kernels vs plain versions in prefill, and one-step
+# decode vs prefill. Each bound is set from the bfloat16 drift measured
+# against a float32 twin on the same weights
+# (scripts/torch_serve_numerics.py on the H100; PERF.md): two bfloat16
+# runs may lie up to twice that drift apart (rounded up to two digits).
+# Drift, and kernels vs plain in float32: llama3.2-3b 5.2e-2 (1.7e-5),
+# mamba2-1.3b 5.73e-2 (9.7e-6), recurrentgemma-9b 3.79e-2 (8.2e-6).
+SERVES = {
+    "llama3.2-3b": dict(prompts=BATCHER_PROMPTS, max_len=2112,
+                        per_prefill={"flash_attention": 28},
+                        logit_rtol=1e-1),
+    "mamba2-1.3b": dict(prompts=BATCHER_PROMPTS, max_len=2112,
+                        per_prefill={"ssd_scan": 48}, logit_rtol=1.2e-1),
+    "recurrentgemma-9b": dict(prompts=HYBRID_PROMPTS, max_len=3072,
+                              per_prefill={"rglru_scan": 26,
+                                           "flash_attention": 12},
+                              logit_rtol=7.6e-2),
+}
+# The reduced configs in float32, card against CPU: other summation orders.
 REDUCED_LOGIT_RTOL = 1e-5
+REDUCED = (("llama3.2-3b", None), ("mamba2-1.3b", None),
+           ("recurrentgemma-9b", 5))      # 1 period (attention) + 2 tail
 # (B, H, KV, Sq, Skv, d, causal, window, q_offset, dtype); the first one is
-# the headline (the generate prefill), the next eight the batcher's.
+# the headline (llama's generate prefill), then llama's batcher, then
+# recurrentgemma's MQA local attention (head_dim 256, window 2048): its
+# generate prefill and its batcher.
 FLASH_MAIN = [(SERVE_BATCH, 24, 8, SERVE_PROMPT, SERVE_PROMPT, 128, True, 0,
                0, "bfloat16")] + [(1, 24, 8, n, n, 128, True, 0, 0,
-                                   "bfloat16") for n in BATCHER_PROMPTS]
+                                   "bfloat16") for n in BATCHER_PROMPTS] + [
+    (SERVE_BATCH, 16, 1, SERVE_PROMPT, SERVE_PROMPT, 256, True, 2048, 0,
+     "bfloat16")] + [(1, 16, 1, n, n, 256, True, 2048, 0, "bfloat16")
+                     for n in HYBRID_PROMPTS]
 FLASH_EXTRA = [
     (1, 24, 8, 777, 777, 128, True, 0, 0, "float32"),
     (1, 24, 8, 2000, 2000, 128, True, 512, 0, "bfloat16"),
@@ -110,6 +152,33 @@ FLASH_EXTRA = [
     (2, 24, 8, 64, 1024, 128, True, 0, 960, "float32"),       # q_offset
     (4, 24, 8, 1, 2049, 128, True, 0, 2048, "bfloat16"),      # decode-like
 ]
+
+# ssd_scan: the JAX sweep's bounds (tests/test_kernels.py:75), relative to
+# the largest |value| of y and of the final state.
+SSD_TOL = {"float32": 3e-5, "bfloat16": 5e-2}
+# (B, S, H, P, N, chunk, dtype): mamba2-1.3b's generate prefill (the
+# headline), its batcher's prompts (B 1, ragged against the chunk), the
+# headline in float32, and the JAX sweep's four shapes in both dtypes.
+SSD_TEST_SHAPES = [(2, 256, 4, 64, 32, 64), (1, 128, 2, 32, 64, 128),
+                   (2, 512, 8, 64, 128, 128), (1, 256, 1, 128, 16, 32)]
+SSD_SHAPES = [(SERVE_BATCH, SERVE_PROMPT, 64, 64, 128, 256, "bfloat16")] + [
+    (1, n, 64, 64, 128, 256, "bfloat16") for n in BATCHER_PROMPTS] + [
+    (SERVE_BATCH, SERVE_PROMPT, 64, 64, 128, 256, "float32")] + [
+    s + (dt,) for dt in ("float32", "bfloat16") for s in SSD_TEST_SHAPES]
+# rglru_scan: the JAX sweep's float32 bound (tests/test_kernels.py:96),
+# absolute; the kernel takes float32 only, as the model's gates give it.
+RGLRU_TOL = 1e-4
+# (B, S, W): recurrentgemma-9b's generate prefill (the headline), its
+# batcher's prompts, and the JAX sweep's four shapes.
+RGLRU_SHAPES = [(SERVE_BATCH, SERVE_PROMPT, 4096)] + [
+    (1, n, 4096) for n in HYBRID_PROMPTS] + [
+    (2, 256, 256), (1, 128, 128), (3, 512, 384), (1, 64, 512)]
+SCAN_REPS = 10
+# The TPU kernel (Pallas body, file:line) each CUDA kernel replaces.
+REPLACES = {"loo_trials": "src/repro/kernels/loo_trials.py:51",
+            "flash_attention": "src/repro/kernels/flash_attention.py:25",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:22",
+            "rglru_scan": "src/repro/kernels/rglru_scan.py:21"}
 
 
 def emit(obj) -> None:
@@ -194,6 +263,15 @@ def device_time_us(fn, args, reps=TIMING_REPS) -> float:
     return float(np.median([a.elapsed_time(b) * 1e3 for a, b in pairs]))
 
 
+def bound(nbytes, flops, dtype):
+    """(bound µs, "bytes" or "operations"): the larger of the bytes at the
+    memory rate and the operations at the dtype's peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
+    t_ops = flops / PEAK_FLOPS_PER_S[dtype] * 1e6
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def phase_kernel(loo):
     t0 = time.perf_counter()
     rows, worst = [], 0.0
@@ -211,15 +289,11 @@ def phase_kernel(loo):
         check(ok, f"loo_trials vs plain at {(L, R, D, M)}: max abs err "
                   f"{err}")
         worst = max(worst, err)
-        nbytes, flops = kernel_cost(L, R, D, M)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
-        t_ops = flops / F32_FLOPS_PER_S * 1e6
+        bound_us, bound_by = bound(*kernel_cost(L, R, D, M), "float32")
         rows.append({"L": L, "R": R, "D": D, "M": M, "max_abs_err": err,
                      "kernel_us": device_time_us(loo.loo_trials, args),
                      "plain_us": device_time_us(loo.loo_trials_ref, args),
-                     "bound_us": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations"})
+                     "bound_us": bound_us, "bound_by": bound_by})
     emit({"phase": "kernel", "kernel": "loo_trials", "rtol": KERNEL_RTOL,
           "atol": KERNEL_ATOL, "max_abs_err": worst,
           "seconds": time.perf_counter() - t0, "shapes": rows})
@@ -275,15 +349,14 @@ def phase_flash(fa):
         check(err <= FLASH_TOL[dtype], f"flash_attention vs plain at "
                                        f"{shape}: max abs err {err}")
         worst[dtype] = max(worst[dtype], err)
-        nbytes, flops = flash_cost(shape)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
-        t_ops = flops / PEAK_FLOPS_PER_S[dtype] * 1e6
         kernel_us = device_time_us(
             lambda: fa.flash_attention_bshd(q, k, v, **kw), (), FLASH_REPS)
-        plain_us = device_time_us(lambda: fa.flash_attention_bshd_ref(q, k, v, **kw),
-                                  (), FLASH_REPS)
+        plain_us = device_time_us(
+            lambda: fa.flash_attention_bshd_ref(q, k, v, **kw), (),
+            FLASH_REPS)
         library_us = None
-        if shape[7] == 0 and shape[8] == 0:
+        if (shape[7] == 0 or shape[7] >= shape[4]) and shape[8] == 0:
+            # no window, or one that covers every key: plain causal
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             library_us = device_time_us(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -291,14 +364,138 @@ def phase_flash(fa):
                 FLASH_REPS)
         rows.append({"shape": list(shape), "max_abs_err": err,
                      "kernel_us": kernel_us, "plain_us": plain_us,
-                     "library_us": library_us,
-                     "bound_us": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations"})
+                     "library_us": library_us})
+        rows[-1]["bound_us"], rows[-1]["bound_by"] = bound(
+            *flash_cost(shape), dtype)
     emit({"phase": "flash", "kernel": "flash_attention", "tol": FLASH_TOL,
           "max_abs_err": worst, "seconds": time.perf_counter() - t0,
           "shapes": rows})
     return rows, max(worst.values())
+
+
+def time_pair(fn, plain, reps=SCAN_REPS):
+    return device_time_us(fn, (), reps), device_time_us(plain, (), reps)
+
+
+def ssd_inputs(shape, seed, device):
+    """The JAX sweep's inputs (tests/test_kernels.py:63-67): x normal in
+    the dtype, dt = softplus(normal) in float32 (as the model gives it),
+    A = -exp(normal / 2), B and C normal / 2 in the dtype."""
+    B, S, H, P, N, _, dtype = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt_ = getattr(torch, dtype)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=device)
+    return (randn(B, S, H, P).to(dt_),
+            torch.nn.functional.softplus(randn(B, S, H)),
+            -torch.exp(randn(H) * 0.5),
+            (randn(B, S, N) * 0.5).to(dt_), (randn(B, S, N) * 0.5).to(dt_))
+
+
+def ssd_cost(shape):
+    """(bytes, flops) the function needs: x, dt, A, B, C read once, y and
+    the state written once. Per (batch, chunk of q steps) and per kept
+    (i >= j) pair of the chunk's q (q + 1) / 2: 2 N operations for the
+    scores C B^T, once for all heads (B and C are shared by the heads),
+    and 2 P per head for the masked scores times x; per head, 2 q N P for
+    the carried state's output C h^T and 2 q N P for the state update."""
+    B, S, H, P, N, Q, dtype = shape
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * (2 * B * S * H * P + 2 * B * S * N + B * H * P * N) \
+        + 4 * (B * S * H + H)
+    qs = [min(Q, S - c) for c in range(0, S, Q)]
+    flops = B * sum(q * (q + 1) * (N + H * P) + 4 * H * q * N * P
+                    for q in qs)
+    return nbytes, flops
+
+
+def phase_ssd(ss):
+    t0 = time.perf_counter()
+    rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    for i, shape in enumerate(SSD_SHAPES):
+        dtype, Q = shape[6], shape[5]
+        args = ssd_inputs(shape, seed=300 + i, device="cuda")
+        y, st = ss.ssd_scan(*args, chunk=Q)
+        y2, st2 = ss.ssd_scan(*args, chunk=Q)
+        yp, stp = ss.ssd_chunked(*args, Q)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y2) and torch.equal(st, st2),
+              f"ssd_scan not bitwise deterministic at {shape}")
+        check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+              f"ssd_scan non-finite at {shape}")
+        err = max(rel_err(y, yp), rel_err(st, stp))
+        check(err <= SSD_TOL[dtype], f"ssd_scan vs plain at {shape}: rel "
+                                     f"err {err}")
+        row = {"shape": list(shape), "rel_err": err, "max_abs_err": max(
+            float((y.float() - yp.float()).abs().max()),
+            float((st.float() - stp.float()).abs().max()))}
+        if shape[:6] in SSD_TEST_SHAPES:
+            yo, sto = ss.ssd_reference(*args)          # the sequential oracle
+            row["rel_err_oracle"] = max(rel_err(y, yo), rel_err(st, sto))
+            check(row["rel_err_oracle"] <= SSD_TOL[dtype],
+                  f"ssd_scan vs oracle at {shape}: {row['rel_err_oracle']}")
+        worst[dtype] = max(worst[dtype], err)
+        row["kernel_us"], row["plain_us"] = time_pair(
+            lambda: ss.ssd_scan(*args, chunk=Q),
+            lambda: ss.ssd_chunked(*args, Q))
+        row["bound_us"], row["bound_by"] = bound(*ssd_cost(shape), dtype)
+        row["library_us"] = None
+        rows.append(row)
+    emit({"phase": "ssd", "kernel": "ssd_scan", "rtol": SSD_TOL,
+          "rel_err": worst, "seconds": time.perf_counter() - t0,
+          "shapes": rows})
+    return rows, max(worst.values())
+
+
+def rglru_inputs(shape, seed, device):
+    """The JAX sweep's inputs (tests/test_kernels.py:91-92), float32: a =
+    sigmoid(normal), b = normal / 2."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.sigmoid(torch.randn(shape, generator=g, device=device))
+    b = torch.randn(shape, generator=g, device=device) * 0.5
+    return a, b
+
+
+def rglru_cost(shape):
+    """(bytes, flops): a and b read once, h written once, float32; one FMA
+    per element."""
+    B, S, W = shape
+    return 3 * 4 * B * S * W, 2 * B * S * W
+
+
+def phase_rglru(rg):
+    t0 = time.perf_counter()
+    rows, worst = [], 0.0
+    for i, shape in enumerate(RGLRU_SHAPES):
+        a, b = rglru_inputs(shape, seed=400 + i, device="cuda")
+        h = rg.rglru_scan(a, b)
+        h2 = rg.rglru_scan(a, b)
+        hp = rg.rglru_scan_ref(a, b)
+        ho = rg.rglru_reference(a, b)                  # the sequential oracle
+        torch.cuda.synchronize()
+        check(torch.equal(h, h2),
+              f"rglru_scan not bitwise deterministic at {shape}")
+        check(bool(torch.isfinite(h).all()), f"rglru_scan non-finite at "
+                                             f"{shape}")
+        err = float((h - hp).abs().max())
+        err_o = float((h - ho).abs().max())
+        check(max(err, err_o) <= RGLRU_TOL,
+              f"rglru_scan at {shape}: max abs err {err} (plain), {err_o} "
+              f"(oracle)")
+        worst = max(worst, err)
+        row = {"shape": list(shape), "max_abs_err": err,
+               "max_abs_err_oracle": err_o}
+        row["kernel_us"], row["plain_us"] = time_pair(
+            lambda: rg.rglru_scan(a, b), lambda: rg.rglru_scan_ref(a, b))
+        row["bound_us"], row["bound_by"] = bound(*rglru_cost(shape),
+                                                 "float32")
+        row["library_us"] = None
+        rows.append(row)
+    emit({"phase": "rglru", "kernel": "rglru_scan", "tol": RGLRU_TOL,
+          "max_abs_err": worst, "seconds": time.perf_counter() - t0,
+          "shapes": rows})
+    return rows, worst
 
 
 class PrefillTally:
@@ -330,22 +527,34 @@ class PrefillTally:
         del self.model.prefill
 
 
-class PlainAttention:
-    """Swaps the plain version in for the flash kernel where the model
-    calls it (``models.blocks.flash_attention_bshd``), for one
-    comparison; the package itself has no switch."""
+class PlainKernels:
+    """Swaps the plain versions in for the kernels where the model calls
+    them (``models.blocks.flash_attention_bshd``, ``models.ssd.ssd_scan``,
+    ``models.rglru.rglru_scan``), for one comparison; the package itself
+    has no switch."""
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import (
             flash_attention_bshd_ref)
-        from repro_torch.models import blocks
+        from repro_torch.kernels.rglru_scan import rglru_scan_ref
+        from repro_torch.kernels.ssd_scan import ssd_chunked
+        from repro_torch.models import blocks, rglru, ssd
 
-        self.blocks, self.orig = blocks, blocks.flash_attention_bshd
-        blocks.flash_attention_bshd = flash_attention_bshd_ref
+        def ssd_plain(x, dt, A, Bm, Cm, *, chunk):
+            return ssd_chunked(x, dt, A, Bm, Cm, chunk)
+
+        self.swaps = [(blocks, "flash_attention_bshd",
+                       flash_attention_bshd_ref),
+                      (ssd, "ssd_scan", ssd_plain),
+                      (rglru, "rglru_scan", rglru_scan_ref)]
+        self.orig = [getattr(m, n) for m, n, _ in self.swaps]
+        for m, n, f in self.swaps:
+            setattr(m, n, f)
         return self
 
     def __exit__(self, *exc):
-        self.blocks.flash_attention_bshd = self.orig
+        for (m, n, _), f in zip(self.swaps, self.orig):
+            setattr(m, n, f)
 
 
 def rel_err(got, want) -> float:
@@ -353,18 +562,17 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / (want.abs().max() + 1e-9))
 
 
-def batcher_requests(vocab, seed=1):
+def batcher_requests(vocab, prompts, seed=1):
     from repro_torch.serving.scheduler import Request
 
     rng = np.random.default_rng(seed)
     return [Request(i, rng.integers(0, vocab, n).astype(np.int64), budget)
-            for i, (n, budget) in enumerate(zip(BATCHER_PROMPTS,
-                                                BATCHER_BUDGETS))]
+            for i, (n, budget) in enumerate(zip(prompts, BATCHER_BUDGETS))]
 
 
-def flash_share_of_prefill(model, batch):
-    """Share of one prefill's device kernel time spent in the flash kernel
-    (``torch.profiler``), and that device time in ms."""
+def kernel_shares_of_prefill(model, batch, names):
+    """Share of one prefill's device kernel time spent in each named
+    kernel (``torch.profiler``), and that device time in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -374,21 +582,42 @@ def flash_share_of_prefill(model, batch):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.time_range.elapsed_us() for e in kernels)
-    flash = sum(e.time_range.elapsed_us() for e in kernels
-                if "flash_attention" in e.name)
     check(total > 0, "profiler saw no device time in prefill")
-    return flash / total, total / 1e3
+    return {n: sum(e.time_range.elapsed_us() for e in kernels
+                   if n in e.name) / total for n in names}, total / 1e3
 
 
-def phase_serve(fa):
+def decode_vs_prefill(model, tokens):
+    """(logits of a full prefill of all S + 1 tokens, logits of a prefill
+    of the first S then one decode step at position S). The split prompt
+    of S = 2048 tokens keeps recurrentgemma's window cache full (a
+    shorter one rolls too early: ROADMAP Queue 3)."""
+    from repro_torch.serving import pad_cache
+
+    B, S1 = tokens.shape
+    full, _ = model.prefill({"tokens": tokens})
+    _, cache = model.prefill({"tokens": tokens[:, :-1]})
+    cache = pad_cache(model, cache, 1, B, S1 - 1)
+    dec, _ = model.decode_step(cache, tokens[:, -1:], S1 - 1)
+    return full, dec
+
+
+def phase_serve(arch, kernel_mods):
+    """Serve ``arch`` at full width and depth in bfloat16 (module doc).
+    ``kernel_mods``: {kernel name: wrapper module}; the counts of the
+    kernels of this path are set to 0 just before its counted run and read
+    just after."""
+    import gc
+
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine, pad_cache
     from repro_torch.serving.scheduler import ContinuousBatcher
 
+    spec = SERVES[arch]
     t0 = time.perf_counter()
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg).init(seed=0)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
@@ -401,9 +630,10 @@ def phase_serve(fa):
     setup_s = time.perf_counter() - t0
 
     # --- the main-path run: counts from 0 just before, read just after ---
-    reqs = batcher_requests(cfg.vocab_size)
+    reqs = batcher_requests(cfg.vocab_size, spec["prompts"])
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
+    for mod in kernel_mods.values():
+        mod.reset_launches()
     with PrefillTally(model) as tally:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -412,7 +642,7 @@ def phase_serve(fa):
         gen_s = time.perf_counter() - t1
         gen_prefill_s = tally.seconds
         batcher = ContinuousBatcher(model, slots=BATCHER_SLOTS,
-                                    max_len=BATCHER_MAX_LEN)
+                                    max_len=spec["max_len"])
         for r in reqs:
             batcher.submit(r)
         steps = 0
@@ -421,7 +651,7 @@ def phase_serve(fa):
             steps += 1
         torch.cuda.synchronize()
         bat_s = time.perf_counter() - t2
-    launches = fa.launches
+    launches = {n: mod.launches for n, mod in kernel_mods.items()}
     peak = torch.cuda.max_memory_allocated()
 
     check(tuple(gen.shape) == (SERVE_BATCH, SERVE_NEW), f"generate shape "
@@ -433,27 +663,28 @@ def phase_serve(fa):
               f"request {r.rid}: done={r.done}, {len(r.out)} tokens of "
               f"{r.max_new_tokens}")
     check(tally.calls == 1 + len(reqs), f"{tally.calls} prefill calls")
-    check(launches == cfg.num_layers * tally.calls,
-          f"flash launches {launches} != {cfg.num_layers} x {tally.calls} "
-          f"prefills")
+    for name, per in spec["per_prefill"].items():
+        check(launches[name] == per * tally.calls,
+              f"{arch}: {name} launches {launches[name]} != {per} x "
+              f"{tally.calls} prefills")
     decode_s = gen_s - gen_prefill_s
 
-    # --- checks against the plain version and prefill (not counted) ---
+    # --- checks against the plain versions and prefill (not counted) ---
     logits_k, _ = model.prefill(batch)
-    with PlainAttention():
+    with PlainKernels():
         logits_p, _ = model.prefill(batch)
     kernel_vs_plain = rel_err(logits_k, logits_p)
-    S = SERVE_PROMPT
-    _, cache = model.prefill({"tokens": batch["tokens"][:, :S - 1]})
-    cache = pad_cache(model, cache, 1, SERVE_BATCH, S - 1)
-    logits_d, _ = model.decode_step(cache, batch["tokens"][:, S - 1:], S - 1)
-    decode_vs_prefill = rel_err(logits_d, logits_k)
+    chk = make_lm_batch(cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT + 1,
+                        seed=2)["tokens"]
+    logits_f, logits_d = decode_vs_prefill(model, chk)
+    dec_vs_pre = rel_err(logits_d, logits_f)
     for name, lg in (("kernel", logits_k), ("plain", logits_p),
-                     ("decode", logits_d)):
+                     ("prefill", logits_f), ("decode", logits_d)):
         check(bool(torch.isfinite(lg).all()) and tuple(lg.shape) ==
               (SERVE_BATCH, cfg.vocab_size), f"bad {name} logits")
-    share, prefill_device_ms = flash_share_of_prefill(model, batch)
-    out = {"phase": "serve", "arch": SERVE_ARCH, "dtype": cfg.dtype,
+    shares, prefill_device_ms = kernel_shares_of_prefill(
+        model, batch, list(spec["per_prefill"]))
+    out = {"phase": "serve", "arch": arch, "dtype": cfg.dtype,
            "layers": cfg.num_layers, "params": int(sum(
                p.numel() for p in model.parameters())),
            "weight_bytes": weight_bytes, "peak_memory_bytes": peak,
@@ -467,39 +698,47 @@ def phase_serve(fa):
                         "decode_tokens_per_s":
                             SERVE_BATCH * SERVE_NEW / decode_s},
            "batcher": {"slots": BATCHER_SLOTS, "requests": len(reqs),
-                       "prompts": list(BATCHER_PROMPTS),
+                       "prompts": list(spec["prompts"]),
                        "budgets": list(BATCHER_BUDGETS), "steps": steps,
                        "seconds": bat_s,
                        "tokens_out": sum(len(r.out) for r in reqs)},
            "prefill_calls": tally.calls, "prefill_tokens": tally.tokens,
            "prefill_seconds": tally.seconds,
-           "flash_launches": launches,
-           "flash_share_of_prefill_device_time": share,
+           "launches": launches,
+           "kernel_share_of_prefill_device_time": shares,
            "prefill_device_ms": prefill_device_ms,
            "kernel_vs_plain_logit_rel_err": kernel_vs_plain,
-           "decode_vs_prefill_logit_rel_err": decode_vs_prefill,
-           "logit_rtol": SERVE_LOGIT_RTOL, "setup_s": setup_s,
+           "decode_vs_prefill_logit_rel_err": dec_vs_pre,
+           "logit_rtol": spec["logit_rtol"], "setup_s": setup_s,
            "seconds": time.perf_counter() - t0}
     emit(out)
-    check(kernel_vs_plain <= SERVE_LOGIT_RTOL, f"kernel vs plain prefill "
-          f"logits: rel err {kernel_vs_plain} > {SERVE_LOGIT_RTOL}")
-    check(decode_vs_prefill <= SERVE_LOGIT_RTOL, f"decode vs prefill "
-          f"logits: rel err {decode_vs_prefill} > {SERVE_LOGIT_RTOL}")
+    check(kernel_vs_plain <= spec["logit_rtol"], f"{arch}: kernels vs "
+          f"plain prefill logits: rel err {kernel_vs_plain} > "
+          f"{spec['logit_rtol']}")
+    check(dec_vs_pre <= spec["logit_rtol"], f"{arch}: decode vs prefill "
+          f"logits: rel err {dec_vs_pre} > {spec['logit_rtol']}")
+    del model, batcher, batch, logits_k, logits_p, logits_f, logits_d
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
-def reduced_card_vs_cpu(seed=0):
-    """The reduced llama3.2-3b config in float32: (max relative logit error
-    of prefill, of a scalar-position decode, of a per-sequence decode),
-    the port on the card against the port on the CPU, same weights."""
+def reduced_card_vs_cpu(arch, seed=0, num_layers=None):
+    """A reduced config (``num_layers`` overriding its depth) in float32:
+    (max relative logit error of prefill, of a scalar-position decode, of
+    a per-sequence decode), the port on the card against the port on the
+    CPU, same weights."""
     import copy
+    import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.models import build_model
     from repro_torch.serving import pad_cache
 
-    cfg = get_config(SERVE_ARCH).reduced()
+    cfg = get_config(arch).reduced()
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     cpu = build_model(cfg, device="cpu").init(seed=seed)
     card = copy.deepcopy(cpu).to("cuda")
     toks = make_lm_batch(cfg.vocab_size, 2, 64, seed=3, device="cpu")
@@ -521,13 +760,16 @@ def reduced_card_vs_cpu(seed=0):
 
 def phase_reduced():
     t0 = time.perf_counter()
-    errs = reduced_card_vs_cpu()
-    emit({"phase": "reduced", "arch": SERVE_ARCH + " reduced (float32)",
-          "prefill_rel_err": errs[0], "decode_rel_err": errs[1],
-          "decode_per_sequence_rel_err": errs[2],
-          "rtol": REDUCED_LOGIT_RTOL, "seconds": time.perf_counter() - t0})
-    check(max(errs) <= REDUCED_LOGIT_RTOL, f"reduced config card vs CPU: "
-          f"rel errs {errs} > {REDUCED_LOGIT_RTOL}")
+    for arch, num_layers in REDUCED:
+        errs = reduced_card_vs_cpu(arch, num_layers=num_layers)
+        emit({"phase": "reduced", "arch": f"{arch} reduced (float32)",
+              "num_layers": num_layers, "prefill_rel_err": errs[0],
+              "decode_rel_err": errs[1],
+              "decode_per_sequence_rel_err": errs[2],
+              "rtol": REDUCED_LOGIT_RTOL,
+              "seconds": time.perf_counter() - t0})
+        check(max(errs) <= REDUCED_LOGIT_RTOL, f"reduced {arch} card vs "
+              f"CPU: rel errs {errs} > {REDUCED_LOGIT_RTOL}")
 
 
 def summaries(result):
@@ -623,6 +865,8 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import loo_trials as loo
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import ssd_scan as ss
 
     # 1. device
     smi = nvidia_smi_line()
@@ -634,9 +878,11 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    libs = build.build(["loo_trials", "flash_attention"])
-    loo._launcher()
-    fa._launcher()
+    mods = {"loo_trials": loo, "flash_attention": fa, "ssd_scan": ss,
+            "rglru_scan": rg}
+    libs = build.build(list(mods))
+    for mod in mods.values():
+        mod._launcher()
     ptxas = {k: [ln.strip() for ln in v.with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln or "spill" in ln]
              for k, v in libs.items()}
@@ -645,13 +891,13 @@ def main() -> int:
           "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()},
           "ptxas": ptxas})
 
-    # 3. loo_trials against its plain version
+    # 3.-6. every kernel against its plain version
     rows, worst = phase_kernel(loo)
-
-    # 4. flash_attention against its plain version
     flash_rows, flash_worst = phase_flash(fa)
+    ssd_rows, ssd_worst = phase_ssd(ss)
+    rglru_rows, rglru_worst = phase_rglru(rg)
 
-    # 5. smoke preset against the golden fixture
+    # 7. smoke preset against the golden fixture
     with open(os.path.join(ROOT, "tests", "golden", "smoke_golden.json")) \
             as fh:
         golden = json.load(fh)
@@ -661,7 +907,7 @@ def main() -> int:
                  golden["per_label"], list(golden["per_label"]), loo, fleet,
                  data)
 
-    # 6. the paper grid at full data size: loo_trials' counted main path
+    # 8. the paper grid at full data size: loo_trials' counted main path
     with open(os.path.join(ROOT, "results", "benchmarks",
                            "paper_tables.json")) as fh:
         paper = json.load(fh)
@@ -671,34 +917,44 @@ def main() -> int:
                             paper, labels, loo, fleet,
                             make_covtype_like(seed=0))
 
-    # 7. llama3.2-3b serving: flash_attention's counted main path
-    serve = phase_serve(fa)
+    # 9.-11. serving, one model at a time: the counted main paths of
+    # flash_attention, ssd_scan and rglru_scan
+    served = {arch: phase_serve(arch, {n: mods[n] for n in
+                                       SERVES[arch]["per_prefill"]})
+              for arch in SERVES}
 
-    # 8. the reduced config, card against CPU
+    # 12. the reduced configs, card against CPU
     phase_reduced()
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     head = next(r for r in rows
                 if (r["L"], r["R"], r["D"], r["M"]) == HEADLINE_SHAPE)
+
+    def served_launches(name):
+        return sum(out["launches"].get(name, 0) for out in served.values())
+
+    def line(name, head, err, launches, library_us=None):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": REPLACES[name], "launches": launches,
+                "max_abs_err": err, "ms": head["kernel_us"] / 1e3,
+                "plain_ms": head["plain_us"] / 1e3,
+                "bound_ms": head["bound_us"] / 1e3,
+                "bound_by": head["bound_by"],
+                "library_ms": None if library_us is None
+                else library_us / 1e3, "shape": head["shape"]}
+
+    head["shape"] = list(HEADLINE_SHAPE)
     fhead = flash_rows[0]
-    emit({"kernels": [{
-        "name": "loo_trials", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/loo_trials.cu",
-        "replaces": "src/repro/kernels/loo_trials.py:51",
-        "launches": main_run["loo_trials_launches"],
-        "max_abs_err": worst,
-        "ms": head["kernel_us"] / 1e3, "plain_ms": head["plain_us"] / 1e3,
-        "bound_ms": head["bound_us"] / 1e3, "bound_by": head["bound_by"],
-        "library_ms": None, "shape": list(HEADLINE_SHAPE)}, {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:25",
-        "launches": serve["flash_launches"],
-        "max_abs_err": flash_worst,
-        "ms": fhead["kernel_us"] / 1e3, "plain_ms": fhead["plain_us"] / 1e3,
-        "bound_ms": fhead["bound_us"] / 1e3, "bound_by": fhead["bound_by"],
-        "library_ms": fhead["library_us"] / 1e3,
-        "shape": fhead["shape"]}]})
+    emit({"kernels": [
+        line("loo_trials", head, worst, main_run["loo_trials_launches"]),
+        line("flash_attention", fhead, flash_worst,
+             served_launches("flash_attention"), fhead["library_us"]),
+        line("ssd_scan", ssd_rows[0],
+             max(r["max_abs_err"] for r in ssd_rows),
+             served_launches("ssd_scan")),
+        line("rglru_scan", rglru_rows[0], rglru_worst,
+             served_launches("rglru_scan"))]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

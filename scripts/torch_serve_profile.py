@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Where the PyTorch port's serving time goes on the GPU: llama3.2-3b at
-full width and depth, bfloat16, random weights from the port's seeded
-initialiser.
+"""Where the PyTorch port's serving time goes on the GPU: a model
+(``--arch``: llama3.2-3b, mamba2-1.3b or recurrentgemma-9b) at full width
+and depth, bfloat16, random weights from the port's seeded initialiser.
 
-    python scripts/torch_serve_profile.py [--batch 4] [--prompt 2048]
-        [--steps 16] [--trace serve_trace.json]
+    python scripts/torch_serve_profile.py [--arch llama3.2-3b] [--batch 4]
+        [--prompt 2048] [--steps 16] [--trace serve_trace.json]
 
 Runs one prefill of ``batch`` x ``prompt`` tokens and ``steps`` decode
 steps once unprofiled (host wall time, each phase ending in a

@@ -8,8 +8,8 @@ field, so a config means the same thing in both packages.
 ``attention_impl`` stays in :class:`ModelConfig` so that configs compare
 equal across the two packages, but in the port it selects nothing: the
 attention path is chosen by the tensors' device (a CUDA tensor runs the
-hand-written flash kernel, a CPU tensor its plain PyTorch version; see
-``repro_torch.kernels.flash_attention``).
+hand-written kernels, a CPU tensor their plain PyTorch versions; see
+``repro_torch.kernels``). The same holds for the SSD and RG-LRU scans.
 
 Only the ported families are registered (``repro_torch.configs``);
 :func:`get_config` of any other architecture of the reference raises
@@ -351,9 +351,6 @@ _REGISTRY: dict = {}
 # Architectures of the reference that the port does not run yet, with the
 # ROADMAP item (Queue 1) that brings each one over.
 NOT_PORTED = {
-    "mamba2-1.3b": "Queue 1 item 9b (ssm family, ssd_scan kernel)",
-    "recurrentgemma-9b": "Queue 1 item 9c (hybrid family, rglru_scan "
-                         "kernel)",
     "minicpm3-4b": "Queue 1 item 9d (MLA attention)",
     "deepseek-v3-671b": "Queue 1 item 9d (MLA attention, MoE)",
     "olmoe-1b-7b": "Queue 1 item 9d (MoE)",

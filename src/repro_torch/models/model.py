@@ -1,4 +1,5 @@
-"""Model assembly of the ``dense`` family (port of ``repro.models.model``).
+"""Model assembly of the ``dense``, ``ssm`` and ``hybrid`` families (port
+of ``repro.models.model``).
 
 One :class:`Model` (an ``nn.Module``) wraps a :class:`ModelConfig` and
 holds its parameters, in the reference's layouts:
@@ -10,20 +11,24 @@ holds its parameters, in the reference's layouts:
 * ``decode_step``       — one-token serve step against a fixed-size cache
 * ``cache_template``    — ParamSpec tree for the serve cache
 
-Layers are a ``ModuleList`` walked in a Python loop (the reference's
-``lax.scan`` over stacked layers); ``load_params`` splits a stacked
-``layers/...`` leaf of shape (L, ...) across the layers. Parameters live
+Layers are ``ModuleList``s walked in a Python loop (the reference's
+``lax.scan`` over stacked layers): ``layers`` (dense, ssm), or ``periods``
+of ``{rec1, rec2, att}`` and a ``tail`` of RG-LRU sublayers (hybrid);
+``load_params`` splits a stacked ``layers/...``, ``periods/...`` or
+``tail/...`` leaf of shape (L, ...) across them. Parameters live
 on the model's device in the config's dtype (bfloat16 at full size) and
 take no gradients: the port serves, training is a later slice
 (``loss_fn`` waits for ROADMAP Queue 1 item 9d).
 
 The decode cache is updated in place: ``decode_step`` writes the new K/V
-entries into the buffers it is given (or rolls a window cache in place)
-and returns them. The reference returns new arrays; in place saves a copy
-of the whole cache per step.
+entries into the buffers it is given (or rolls a window cache in place),
+overwrites the SSM / RG-LRU states and conv windows, and returns them.
+The reference returns new arrays; in place saves a copy of the whole
+cache per step.
 
-Only ``family == "dense"`` without MLA or MoE is ported; any other config
-raises :class:`NotImplementedError` naming its ROADMAP item.
+Ported: ``dense`` without MLA or MoE, ``ssm`` (Mamba-2) and ``hybrid``
+(RecurrentGemma); any other config raises :class:`NotImplementedError`
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import NOT_PORTED, ModelConfig
-from repro_torch.models import blocks
+from repro_torch.models import blocks, rglru, ssd
 from repro_torch.models.blocks import (
     chunked_attention, gqa_attention, gqa_template, mlp, mlp_template,
     out_proj, rmsnorm,
@@ -62,8 +67,26 @@ def _attn_block_template(cfg: ModelConfig) -> dict:
             "attn": gqa_template(cfg), "mlp": mlp_template(d, cfg.d_ff)}
 
 
+def _ssm_block_template(cfg: ModelConfig) -> dict:
+    return {"ln1": _norm_spec(cfg.d_model), "mixer": ssd.ssd_template(cfg)}
+
+
+def _hybrid_sublayer(cfg: ModelConfig, kind: str) -> dict:
+    d = cfg.d_model
+    mix = rglru.rglru_template(cfg) if kind == "rglru" else gqa_template(cfg)
+    return {"ln1": _norm_spec(d), "mix": mix,
+            "ln2": _norm_spec(d), "mlp": mlp_template(d, cfg.d_ff)}
+
+
+def _hybrid_period(cfg: ModelConfig) -> dict:
+    return {"rec1": _hybrid_sublayer(cfg, "rglru"),
+            "rec2": _hybrid_sublayer(cfg, "rglru"),
+            "att": _hybrid_sublayer(cfg, "attn")}
+
+
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family == "dense" and cfg.mla is None and cfg.moe is None:
+    if cfg.mla is None and cfg.moe is None and cfg.family in (
+            "dense", "ssm", "hybrid"):
         return
     item = NOT_PORTED.get(cfg.name, "Queue 1 item 9 (LM families)")
     raise NotImplementedError(
@@ -139,15 +162,52 @@ def _gqa_decode_window(p, x, ck, cv, cfg, pos):
     return out_proj(out, p["wo"])
 
 
+def _hybrid_sub(p, h, cfg: ModelConfig, kind: str):
+    """One hybrid sublayer (mixer + MLP) over the full sequence. Returns
+    (h, state): (h_last, conv_tail) for RG-LRU, the last ``window`` keys
+    and values for local attention."""
+    x = rmsnorm(h, p["ln1"], cfg.norm_eps)
+    if kind == "rglru":
+        y, st = rglru.rglru_forward(p["mix"], x, cfg)
+    else:
+        win = cfg.rglru.window
+        y, (k, v) = gqa_attention(p["mix"], x, cfg, window=win)
+        w = min(win, k.shape[1])
+        st = (k[:, -w:], v[:, -w:])
+    h = h + y
+    return h + mlp(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps)), st
+
+
+def _hybrid_sub_decode(p, h, cfg: ModelConfig, kind: str, st, pos):
+    """One hybrid sublayer of one decode step; writes ``st`` (the
+    sublayer's two cache buffers) in place."""
+    x = rmsnorm(h, p["ln1"], cfg.norm_eps)
+    if kind == "rglru":
+        y, _ = rglru.rglru_decode(p["mix"], x, st[0], st[1], cfg)
+    else:
+        y = _gqa_decode_window(p["mix"], x, st[0], st[1], cfg, pos)
+    h = h + y
+    return h + mlp(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps))
+
+
+# Hybrid cache leaves of one period, in sublayer order.
+_PERIOD_CACHE = (("rec1", "rglru", ("rec1_h", "rec1_conv")),
+                 ("rec2", "rglru", ("rec2_h", "rec2_conv")),
+                 ("att", "attn", ("att_k", "att_v")))
+_TAIL_CACHE = ("tail_h", "tail_conv")
+
+
 # ---------------------------------------------------------------------------
 # Model
 # ---------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """A dense decoder on ``device`` (default ``"cuda"``: raises without
-    CUDA unless the CPU, or ``"meta"`` for shapes only, is asked for).
-    Parameters are allocated uninitialised; call :meth:`init` or
-    :meth:`load_params`."""
+    """A decoder of a ported family on ``device`` (default ``"cuda"``:
+    raises without CUDA unless the CPU, or ``"meta"`` for shapes only, is
+    asked for). Parameters are allocated uninitialised; call :meth:`init`
+    or :meth:`load_params`."""
+
+    STACKED = ("layers", "periods", "tail")
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=None):
         super().__init__()
@@ -155,36 +215,62 @@ class Model(nn.Module):
         self.cfg = cfg
         dev = resolve_device(device)
         self.dtype = torch_dtype(dtype or cfg.dtype)
-        top = {k: v for k, v in self.template().items() if k != "layers"}
+        top = {k: v for k, v in self.template().items()
+               if k not in self.STACKED}
         self.top = ParamModule(top, dev, self.dtype)
-        self.layers = nn.ModuleList(
-            ParamModule(_attn_block_template(cfg), dev, self.dtype)
-            for _ in range(cfg.num_layers))
+
+        def stack(template, n):
+            return nn.ModuleList(ParamModule(template, dev, self.dtype)
+                                 for _ in range(n))
+
+        if cfg.family == "hybrid":
+            n_per, n_tail = self._hybrid_counts()
+            self.periods = stack(_hybrid_period(cfg), n_per)
+            self.tail = stack(_hybrid_sublayer(cfg, "rglru"), n_tail)
+        else:
+            self.layers = stack(self._block_template(), cfg.num_layers)
 
     @property
     def device(self) -> torch.device:
         return self.top["embed"].device
 
     # ------------------------------------------------------------- templates
+    def _block_template(self) -> dict:
+        if self.cfg.family == "ssm":
+            return _ssm_block_template(self.cfg)
+        return _attn_block_template(self.cfg)
+
+    def _hybrid_counts(self):
+        L = self.cfg.num_layers
+        period = len(self.cfg.rglru.pattern)
+        return L // period, L % period
+
     def template(self) -> dict:
         cfg = self.cfg
         d, v = cfg.d_model, cfg.vocab_size
         t: Dict[str, Any] = {
             "embed": ParamSpec((v, d), ("vocab", "embed"), "embed"),
             "final_norm": _norm_spec(d),
-            "layers": _stack(_attn_block_template(cfg), cfg.num_layers),
         }
         if not cfg.tie_embeddings:
             t["lm_head"] = ParamSpec((d, v), ("embed", "vocab"))
+        if cfg.family == "hybrid":
+            n_per, n_tail = self._hybrid_counts()
+            t["periods"] = _stack(_hybrid_period(cfg), n_per)
+            if n_tail:
+                t["tail"] = _stack(_hybrid_sublayer(cfg, "rglru"), n_tail)
+        else:
+            t["layers"] = _stack(self._block_template(), cfg.num_layers)
         return t
 
     # ------------------------------------------------------------ parameters
     def _targets(self, path: str):
         """The parameter(s) a reference leaf path maps onto: one tensor, or
-        one per layer for a stacked ``layers/...`` leaf."""
-        if path.startswith("layers/"):
-            sub = path[len("layers/"):]
-            return [layer.leaf(sub) for layer in self.layers]
+        one per layer for a stacked ``layers/``, ``periods/`` or ``tail/``
+        leaf."""
+        head, _, sub = path.partition("/")
+        if head in self.STACKED:
+            return [layer.leaf(sub) for layer in getattr(self, head)]
         return self.top.leaf(path)
 
     @torch.no_grad()
@@ -229,7 +315,12 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------- embedding
     def _embed(self, tokens):
-        return self.top["embed"][tokens.long()].to(self.dtype)
+        h = self.top["embed"][tokens.long()].to(self.dtype)
+        if self.cfg.family == "hybrid":           # gemma-style scaling
+            # sqrt(d_model) rounded to the model dtype, as the reference
+            h = h * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype,
+                                 device=h.device)
+        return h
 
     def _head(self, h):
         if self.cfg.tie_embeddings:
@@ -238,15 +329,35 @@ class Model(nn.Module):
 
     # ---------------------------------------------------------- trunk passes
     def _trunk(self, h, *, collect_cache=False):
-        """Full-sequence pass over all layers. Returns (h, caches)."""
-        ks, vs = [], []
-        for p_l in self.layers:
-            h, (k, v) = _attn_block(p_l, h, self.cfg)
+        """Full-sequence pass over all layers. Returns (h, caches): per
+        cache leaf name, the list of per-layer entries (empty unless
+        ``collect_cache``)."""
+        cfg = self.cfg
+        caches: Dict[str, list] = {}
+
+        def keep(names, values):
             if collect_cache:
-                ks.append(k)
-                vs.append(v)
-        caches = {"main": (torch.stack(ks), torch.stack(vs))} \
-            if collect_cache else {}
+                for name, value in zip(names, values):
+                    caches.setdefault(name, []).append(value)
+
+        if cfg.family == "dense":
+            for p_l in self.layers:
+                h, kv = _attn_block(p_l, h, cfg)
+                keep(("k", "v"), kv)
+        elif cfg.family == "ssm":
+            for p_l in self.layers:
+                x = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
+                y, st = ssd.ssd_forward(p_l["mixer"], x, cfg)
+                h = h + y
+                keep(("state", "conv"), st)
+        else:
+            for p_l in self.periods:
+                for sub, kind, names in _PERIOD_CACHE:
+                    h, st = _hybrid_sub(p_l[sub], h, cfg, kind)
+                    keep(names, st)
+            for p_l in self.tail:
+                h, st = _hybrid_sub(p_l, h, cfg, "rglru")
+                keep(_TAIL_CACHE, st)
         return h, caches
 
     # --------------------------------------------------------------- serving
@@ -254,17 +365,26 @@ class Model(nn.Module):
     def prefill(self, batch):
         """batch: {"tokens": (B, S) integer tensor on the model's device}.
         Returns (last_token_logits (B, V), cache)."""
-        h = self._embed(batch["tokens"])
+        tokens = batch["tokens"]
+        h = self._embed(tokens)
         h, caches = self._trunk(h, collect_cache=True)
         logits = self._head(self._norm(h[:, -1:]))[:, 0]
-        return logits, self._pack_cache(caches)
+        return logits, self._pack_cache(caches, *tokens.shape)
 
-    def _pack_cache(self, caches):
-        k, v = caches["main"]
-        if self.cfg.sliding_window:
-            w = min(self.cfg.sliding_window, k.shape[2])
-            k, v = k[:, :, -w:], v[:, :, -w:]
-        return {"k": k, "v": v}
+    def _pack_cache(self, caches, batch: int, seq_len: int):
+        """Stack the per-layer entries into the reference's cache leaves
+        ((layers, batch, ...)); a hybrid model without periods (or tail)
+        gets the empty leaves of its cache template."""
+        tmpl = self.cache_template(batch, seq_len)
+        out = {}
+        for name, spec in tmpl.items():
+            vals = caches.get(name)
+            out[name] = torch.stack(vals) if vals else torch.zeros(
+                spec.shape, dtype=self.dtype, device=self.device)
+        if self.cfg.family == "dense" and self.cfg.sliding_window:
+            w = min(self.cfg.sliding_window, out["k"].shape[2])
+            out = {k: v[:, :, -w:] for k, v in out.items()}
+        return out
 
     def cache_template(self, batch: int, seq_len: int) -> dict:
         cfg = self.cfg
@@ -272,28 +392,78 @@ class Model(nn.Module):
         KV, hd = cfg.num_kv_heads, cfg.head_dim
         S = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
             else seq_len
-        ax = ("layers", "batch", "cache_len", "kv_heads", None)
-        return {"k": ParamSpec((L, B, S, KV, hd), ax, "zeros", None),
-                "v": ParamSpec((L, B, S, KV, hd), ax, "zeros", None)}
+
+        def kv(nl, s):
+            ax = ("layers", "batch", "cache_len", "kv_heads", None)
+            return (ParamSpec((nl, B, s, KV, hd), ax, "zeros", None),
+                    ParamSpec((nl, B, s, KV, hd), ax, "zeros", None))
+
+        if cfg.family == "ssm":
+            d_in, nh, P, N = ssd.ssd_dims(cfg)
+            ch = d_in + 2 * N
+            return {
+                "state": ParamSpec((L, B, nh, P, N),
+                                   ("layers", "batch", "heads", None, None),
+                                   "zeros", None),
+                "conv": ParamSpec((L, B, cfg.ssm.conv_width - 1, ch),
+                                  ("layers", "batch", None, "mlp"),
+                                  "zeros", None)}
+        if cfg.family == "hybrid":
+            n_per, n_tail = self._hybrid_counts()
+            W = rglru.rglru_width(cfg)
+            cw = cfg.rglru.conv_width
+
+            def rec(n):
+                return (ParamSpec((n, B, W), ("layers", "batch", "lru"),
+                                  "zeros", None),
+                        ParamSpec((n, B, cw - 1, W),
+                                  ("layers", "batch", None, "lru"),
+                                  "zeros", None))
+            out = {}
+            for _, kind, names in _PERIOD_CACHE:
+                specs = rec(n_per) if kind == "rglru" \
+                    else kv(n_per, min(cfg.rglru.window, seq_len))
+                out.update(zip(names, specs))
+            if n_tail:
+                out.update(zip(_TAIL_CACHE, rec(n_tail)))
+            return out
+        k, v = kv(L, S)
+        return {"k": k, "v": v}
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos):
         """One serve step: tokens (B,1) integers, pos an int, a 0-d tensor
-        or a (B,) tensor of per-sequence positions.
+        or a (B,) tensor of per-sequence positions (the ssm family ignores
+        it, as the reference does).
 
-        Returns (logits (B,V), cache): the attention caches are fixed-size
-        buffers written in place at ``pos`` (or rolled in place, for window
-        caches) and returned.
+        Returns (logits (B,V), cache): the caches are fixed-size buffers
+        written in place (K/V at ``pos``, window caches rolled, recurrent
+        states and conv windows overwritten) and returned.
         """
         cfg = self.cfg
         pos = pos.to(self.device, torch.long) if torch.is_tensor(pos) \
             else torch.full((), int(pos), dtype=torch.long, device=self.device)
         h = self._embed(tokens)
-        window_cache = bool(cfg.sliding_window)
-        for l, p_l in enumerate(self.layers):
-            c_l = {"k": cache["k"][l], "v": cache["v"][l]}
-            h = _attn_block_decode(p_l, h, cfg, c_l, pos,
-                                   window_cache=window_cache)
+        if cfg.family == "dense":
+            window_cache = bool(cfg.sliding_window)
+            for l, p_l in enumerate(self.layers):
+                c_l = {"k": cache["k"][l], "v": cache["v"][l]}
+                h = _attn_block_decode(p_l, h, cfg, c_l, pos,
+                                       window_cache=window_cache)
+        elif cfg.family == "ssm":
+            for l, p_l in enumerate(self.layers):
+                x = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
+                y, _ = ssd.ssd_decode(p_l["mixer"], x, cache["state"][l],
+                                      cache["conv"][l], cfg)
+                h = h + y
+        else:
+            for l, p_l in enumerate(self.periods):
+                for sub, kind, names in _PERIOD_CACHE:
+                    st = tuple(cache[n][l] for n in names)
+                    h = _hybrid_sub_decode(p_l[sub], h, cfg, kind, st, pos)
+            for l, p_l in enumerate(self.tail):
+                st = tuple(cache[n][l] for n in _TAIL_CACHE)
+                h = _hybrid_sub_decode(p_l, h, cfg, "rglru", st, pos)
         logits = self._head(self._norm(h))[:, 0]
         return logits, cache
 

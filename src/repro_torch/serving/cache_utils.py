@@ -3,8 +3,9 @@
 ``decode_step`` writes into fixed-size buffers at a position index. After a
 prefill of length S, the cache buffers have length S; to keep decoding they
 are padded to the target budget once (one concatenation) and then written
-in place. Window caches (sliding-window attention) roll instead and never
-grow.
+in place. Window caches (sliding-window attention, the hybrid family's
+local attention) roll instead and never grow; recurrent states and conv
+windows (ssm, hybrid) have no ``cache_len`` axis and are left alone.
 """
 from __future__ import annotations
 
@@ -27,9 +28,13 @@ def pad_cache(model: Model, cache, n_extra: int, batch: int, seq_len: int):
     """Grow every cache_len axis by ``n_extra`` zero slots (append budget).
 
     Window caches (length == window) are returned untouched — they roll.
+    As in the reference, any cache of length ``min(window, seq_len)``
+    counts as a window cache, so one shorter than the window is never
+    padded and rolls from the first decode step (ROADMAP Queue 3).
     """
+    cfg = model.cfg
     axes = _cache_len_axes(model, batch, seq_len)
-    window = model.cfg.sliding_window
+    window = cfg.sliding_window or (cfg.rglru.window if cfg.rglru else 0)
     out = {}
     for key, leaf in cache.items():
         ax = axes.get(key)

@@ -1,8 +1,9 @@
 """Card-only tests of the port: the hand-written CUDA kernels against
 their plain PyTorch versions, and the port on the card against the port
-on the CPU (the HTL scenarios, and the reduced llama3.2-3b in float32). Every test here is marked ``cuda`` and skips (with its reason) where
-CUDA is absent; this file imports neither JAX nor ``repro``, so it runs on
-a machine that has only PyTorch:
+on the CPU (the HTL scenarios, and the reduced llama3.2-3b, mamba2-1.3b
+and recurrentgemma-9b in float32). Every test here is marked ``cuda`` and
+skips (with its reason) where CUDA is absent; this file imports neither
+JAX nor ``repro``, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -11,20 +12,27 @@ the plain version (float32, other summation order), bitwise equal across
 launches; whole scenarios with ledgers exactly equal and F1 within the
 port's bound of 5e-3 (PERF.md); ``flash_attention`` within the JAX sweep's
 max abs 2e-5 (float32) and 2e-2 (bfloat16) of its plain version, bitwise
-equal across launches; the reduced LM's logits within 1e-5 relative."""
+equal across launches; ``ssd_scan`` within the sweep's relative 3e-5
+(float32) / 5e-2 (bfloat16) and ``rglru_scan`` (float32 only) within its
+absolute 1e-4, both bitwise equal across launches; the reduced LMs' logits
+within 1e-5 relative."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FLASH_EXTRA, FLASH_TOL, KERNEL_SHAPES,
-                        REDUCED_LOGIT_RTOL, flash_inputs, flash_kwargs,
-                        kernel_inputs, reduced_card_vs_cpu)
+from chip_smoke import (FLASH_EXTRA, FLASH_TOL, KERNEL_SHAPES, REDUCED,
+                        REDUCED_LOGIT_RTOL, RGLRU_SHAPES, RGLRU_TOL,
+                        SSD_SHAPES, SSD_TOL, flash_inputs, flash_kwargs,
+                        kernel_inputs, reduced_card_vs_cpu, rel_err,
+                        rglru_inputs, ssd_inputs)
 from repro_torch.core import scenario
 from repro_torch.data.synthetic_covtype import make_covtype_like
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import loo_trials as loo
+from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import ssd_scan as ss
 
 pytestmark = pytest.mark.cuda
 
@@ -111,7 +119,78 @@ def test_flash_wrapper_refuses_what_it_cannot_run(cuda):
 
 
 def test_reduced_lm_on_the_card_matches_the_cpu(cuda):
-    assert max(reduced_card_vs_cpu(seed=4)) <= REDUCED_LOGIT_RTOL
+    assert max(reduced_card_vs_cpu("llama3.2-3b", seed=4)) <= \
+        REDUCED_LOGIT_RTOL
+
+
+@pytest.mark.parametrize("arch,num_layers", REDUCED[1:],
+                         ids=[a for a, _ in REDUCED[1:]])
+def test_reduced_ssm_and_hybrid_on_the_card_match_the_cpu(cuda, arch,
+                                                          num_layers):
+    assert max(reduced_card_vs_cpu(arch, seed=4, num_layers=num_layers)) \
+        <= REDUCED_LOGIT_RTOL
+
+
+# the batcher's shapes (B 1) and the sweep's, in both dtypes
+SSD_CARD_SHAPES = SSD_SHAPES[1:]
+
+
+@pytest.mark.parametrize("shape", SSD_CARD_SHAPES,
+                         ids=[str(s) for s in SSD_CARD_SHAPES])
+def test_ssd_kernel_matches_plain_version(cuda, shape):
+    args = ssd_inputs(shape, seed=500, device=cuda)
+    chunk = shape[5]
+    before = ss.launches
+    y, st = ss.ssd_scan(*args, chunk=chunk)
+    y2, st2 = ss.ssd_scan(*args, chunk=chunk)
+    assert ss.launches == before + 2
+    yp, stp = ss.ssd_chunked(*args, chunk)
+    assert y.dtype == args[0].dtype and st.shape == stp.shape
+    tol = SSD_TOL[shape[6]]
+    assert rel_err(y, yp) <= tol and rel_err(st, stp) <= tol
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+def test_ssd_kernel_reads_views_and_refuses_what_it_cannot_run(cuda):
+    """x, B and C as views of one conv output (the model's layout) give
+    what contiguous copies give; P > 128 and a chunk > 1024 raise."""
+    B, S, H, P, N = 2, 300, 4, 64, 32
+    g = torch.Generator(device=cuda).manual_seed(0)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=g, device=cuda)
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g,
+                                                  device=cuda))
+    A = -torch.ones(H, device=cuda)
+    y, st = ss.ssd_scan(x, dt, A, Bm, Cm, chunk=128)
+    yc, sc = ss.ssd_scan(x.contiguous(), dt, A, Bm.contiguous(),
+                         Cm.contiguous(), chunk=128)
+    assert torch.equal(y, yc) and torch.equal(st, sc)
+    wide = torch.zeros((1, 8, 1, 192), device=cuda)
+    with pytest.raises(ValueError, match="P, N <= 128"):
+        ss.ssd_scan(wide, dt[:1, :8, :1], A[:1], Bm[:1, :8], Cm[:1, :8])
+    with pytest.raises(ValueError, match="chunk"):
+        ss.ssd_scan(x, dt, A, Bm, Cm, chunk=2048)
+
+
+@pytest.mark.parametrize("shape", RGLRU_SHAPES,
+                         ids=[str(s) for s in RGLRU_SHAPES])
+def test_rglru_kernel_matches_plain_version(cuda, shape):
+    a, b = rglru_inputs(shape, seed=600, device=cuda)
+    before = rg.launches
+    h = rg.rglru_scan(a, b)
+    h2 = rg.rglru_scan(a, b)
+    assert rg.launches == before + 2
+    assert h.dtype == torch.float32 and h.shape == a.shape
+    err = float((h - rg.rglru_scan_ref(a, b)).abs().max())
+    assert err <= RGLRU_TOL
+    assert torch.equal(h, h2)
+    # a (B,S,W) view with other batch and time strides reads in place
+    hv = rg.rglru_scan(a[:, 1:], b[:, 1:])
+    assert torch.equal(hv, rg.rglru_scan(a[:, 1:].contiguous(),
+                                         b[:, 1:].contiguous()))
+    with pytest.raises(ValueError, match="float32"):
+        rg.rglru_scan(a.bfloat16(), b.bfloat16())
 
 
 def test_flash_kernel_unaligned_bfloat16_takes_the_cuda_core_kernel(cuda):

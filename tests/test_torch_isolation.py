@@ -35,15 +35,21 @@ def test_port_modules_import_without_jax_or_repro():
             "repro_torch.models.blocks", "repro_torch.models.model",
             "repro_torch.serving.cache_utils", "repro_torch.serving.engine",
             "repro_torch.serving.scheduler", "repro_torch.launch.serve",
-            "repro_torch.checkpoint.checkpointer"} <= set(names)
+            "repro_torch.checkpoint.checkpointer",
+            "repro_torch.kernels.ssd_scan", "repro_torch.kernels.rglru_scan",
+            "repro_torch.models.ssd", "repro_torch.models.rglru",
+            "repro_torch.configs.mamba2_1_3b",
+            "repro_torch.configs.recurrentgemma_9b"} <= set(names)
     code = "\n".join(
         ["import importlib, sys"]
         + [f"importlib.import_module({n!r})" for n in names]
         + ["import chip_smoke",
            "from chip_smoke import kernel_inputs, kernel_cost, compare",
            "from chip_smoke import (flash_inputs, flash_cost, flash_pairs,",
-           "    PrefillTally, PlainAttention, batcher_requests,",
-           "    reduced_card_vs_cpu, phase_flash, phase_serve)",
+           "    PrefillTally, PlainKernels, batcher_requests,",
+           "    reduced_card_vs_cpu, phase_flash, phase_serve, phase_ssd,",
+           "    phase_rglru, ssd_inputs, ssd_cost, rglru_inputs,",
+           "    rglru_cost, decode_vs_prefill, kernel_shares_of_prefill)",
            "bad = sorted(m for m in sys.modules",
            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))",
            "assert not bad, bad",
@@ -109,6 +115,8 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
         lambda: make_lm_batch(cfg.vocab_size, 1, 4),
         lambda: next(TokenStream(cfg.vocab_size).batches(1, 4)),
         lambda: serve.main(["--arch", "llama3.2-3b", "--run"]),
+        lambda: serve.main(["--arch", "mamba2-1.3b", "--run"]),
+        lambda: serve.main(["--arch", "recurrentgemma-9b", "--run"]),
         # a model that lives on the card (stand-in: no card here)
         lambda: ServeEngine(types.SimpleNamespace(device=cuda)),
         lambda: ContinuousBatcher(types.SimpleNamespace(device=cuda)),
@@ -117,8 +125,9 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # asking for the CPU works everywhere
-    out = serve.main(["--arch", "llama3.2-3b", "--run", "--device", "cpu"])
-    assert tuple(out.shape) == (2, 8)
+    for arch in ("llama3.2-3b", "mamba2-1.3b", "recurrentgemma-9b"):
+        out = serve.main(["--arch", arch, "--run", "--device", "cpu"])
+        assert tuple(out.shape) == (2, 8)
     assert ContinuousBatcher(cpu_model, slots=2).slots == 2
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         serve.main(["--arch", "llama3.2-3b"])
@@ -128,12 +137,38 @@ def test_unported_families_raise_naming_their_roadmap_item():
     import dataclasses
 
     from repro_torch.configs import NOT_PORTED, get_config
+    from repro_torch.configs.base import MLAConfig
     from repro_torch.models import build_model
 
+    assert "mamba2-1.3b" not in NOT_PORTED
+    assert "recurrentgemma-9b" not in NOT_PORTED
     for arch in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             get_config(arch)
-    ssm = dataclasses.replace(get_config("llama3.2-3b").reduced(),
-                              name="mamba2-1.3b", family="ssm")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        build_model(ssm, device="cpu")
+    mla = dataclasses.replace(get_config("llama3.2-3b").reduced(),
+                              name="minicpm3-4b", mla=MLAConfig())
+    with pytest.raises(NotImplementedError, match="item 9d"):
+        build_model(mla, device="cpu")
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+        assert build_model(get_config(arch).reduced(),
+                           device="meta").cfg.name == arch
+
+
+def test_parameter_initialisers_default_to_cuda(monkeypatch):
+    """iter_init / init_params run on the card unless the CPU is asked
+    for, as every other entry point of the port."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.sharding.partitioning import init_params, iter_init
+
+    tmpl = build_model(get_config("mamba2-1.3b").reduced(),
+                       device="meta").template()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(tmpl)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(iter_init(tmpl))
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_model(get_config(arch).reduced())
+    assert init_params(tmpl, device="cpu")["embed"].device.type == "cpu"

@@ -267,9 +267,10 @@ def test_gqa_decode_matches():
 def test_init_params_follows_the_template():
     m = build_model(t_config("qwen2-72b").reduced(), device="meta")
     tmpl = m.template()
-    a = init_params(tmpl, seed=5, default_dtype=torch.bfloat16)
-    b = init_params(tmpl, seed=5, default_dtype=torch.bfloat16)
-    c = init_params(tmpl, seed=6, default_dtype=torch.bfloat16)
+    kw = dict(default_dtype=torch.bfloat16, device="cpu")
+    a = init_params(tmpl, seed=5, **kw)
+    b = init_params(tmpl, seed=5, **kw)
+    c = init_params(tmpl, seed=6, **kw)
     for path, spec in flatten(tmpl):
         assert a[path].shape == spec.shape
         assert a[path].dtype == torch.bfloat16
