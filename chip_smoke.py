@@ -11,8 +11,10 @@ failure raises and the script exits non-zero without printing a result:
 2. build — compile all four CUDA kernels (``loo_trials``,
    ``flash_attention``, ``ssd_scan``, ``rglru_scan``) from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
-   ``nvcc`` per source, all started together, and print their ``ptxas``
-   lines;
+   ``nvcc`` per source, all started together; then a ``{"ptxas": ...}``
+   line with the registers and spill bytes of every kernel function, and a
+   check that no instantiation of the bf16 tensor-core flash kernel (head
+   dims 32, 64, 128, 256) spills;
 3. kernel — ``loo_trials`` against its plain PyTorch version on the card at
    every main-path shape (rtol 1e-5, atol floor 1e-5), two launches
    bitwise equal, and CUDA-event times of kernel, plain version and bound;
@@ -95,6 +97,9 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PEAK_FLOPS_PER_S = {"bfloat16": 989e12,    # H100 SXM tensor cores, dense
                     "float32": F32_FLOPS_PER_S}
 FLASH_REPS = 10
+# The bf16 tensor-core flash kernel, one instantiation per head dim; none
+# may spill (ptxas report of the build).
+FLASH_TC_KERNEL = "flash_attention_wgmma_kernel"
 # The serve phases: each model at full width and depth, bfloat16.
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 BATCHER_PROMPTS = (64, 129, 250, 511, 777, 1024, 1500, 2000)
@@ -883,13 +888,18 @@ def main() -> int:
     libs = build.build(list(mods))
     for mod in mods.values():
         mod._launcher()
-    ptxas = {k: [ln.strip() for ln in v.with_suffix(".log").read_text()
-                 .splitlines() if "registers" in ln or "spill" in ln]
-             for k, v in libs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "flags": " ".join(build.NVCC_FLAGS),
-          "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()},
-          "ptxas": ptxas})
+          "libraries": {k: os.path.relpath(v, ROOT) for k, v in libs.items()}})
+    # registers and spill bytes of every kernel function (ptxas -v)
+    ptxas = {k: build.ptxas_report(v.with_suffix(".log").read_text())
+             for k, v in libs.items()}
+    emit({"ptxas": ptxas})
+    for d in fa.HEAD_DIMS:
+        rep = ptxas["flash_attention"].get(f"{FLASH_TC_KERNEL}<{d}>")
+        check(rep is not None, f"no ptxas report for {FLASH_TC_KERNEL}<{d}>")
+        check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
+              f"{FLASH_TC_KERNEL}<{d}> spills: {rep}")
 
     # 3.-6. every kernel against its plain version
     rows, worst = phase_kernel(loo)

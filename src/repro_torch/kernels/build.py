@@ -3,9 +3,10 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain ``extern "C"`` launcher.
 It is compiled at first use with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library under ``<repo>/build/kernels/`` and loaded with ``ctypes``
-(no PyTorch headers, so a build takes seconds, not minutes). The library's
-file name carries a digest of its source, so an edited source never loads a
-stale build. A missing ``nvcc`` or a failed compile raises: there is no
+(no PyTorch headers, so a build takes seconds, not minutes). Shared Hopper
+helpers live in ``csrc/hopper.cuh``. The library's file name carries a
+digest of its source, of the headers and of the flags, so an edited
+source or header never loads a stale build. A missing ``nvcc`` or a failed compile raises: there is no
 fallback.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,8 +39,16 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    """The library of kernel ``name``: its file name carries a digest of
+    ``<name>.cu``, of every header under ``csrc/`` and of the compiler
+    flags, so an edited source or header, or other flags, never load a
+    stale build."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, Path]:
@@ -76,3 +86,40 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
         return lib
+
+
+def kernel_label(symbol: str) -> str:
+    """A readable name for a mangled kernel symbol of this repo:
+    ``flash_attention_wgmma_kernel<128>``, ``flash_attention_kernel<bf16,
+    32,64>``; any other symbol is returned as it is."""
+    m = re.search(r"\d+([A-Za-z_]*kernel)(I(?:Li\d+E|f|13__nv_bfloat16)+E)?",
+                  symbol)
+    if m is None:
+        return symbol
+    args = ["f32" if t == "f" else "bf16" if t.startswith("13") else t[2:-1]
+            for t in re.findall(r"Li\d+E|13__nv_bfloat16|f",
+                                (m.group(2) or "")[1:-1])]
+    return f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes per kernel function from a build's
+    ``-Xptxas -v`` report: {label: {"registers", "spill_stores",
+    "spill_loads"}}, labelled by :func:`kernel_label`."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = kernel_label(m.group(1))
+            out.setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out

@@ -21,36 +21,39 @@
 //
 // What bounds it on an H100: operations. At the serve path's prefill
 // (B=4, H=24, S=2048, D=128, bf16, causal) the work is 1.0e11 FLOP against
-// 134 MB of q/k/v/o: 104 us at the 989 TFLOP/s bf16 tensor-core peak,
-// 40 us at 3.35 TB/s. Two kernels share the contract:
+// 134 MB of q/k/v/o: 104.28 us at the 989 TFLOP/s bf16 tensor-core peak,
+// 40 us at 3.35 TB/s. Keeping p.v float32 (below) adds half again to the
+// tensor-core work. Two kernels share the contract:
 //
-// * flash_attention_mma_kernel (bfloat16, 16-byte aligned rows: every
-//   contiguous layout, so the serve path) runs both products on the tensor
-//   cores with mma.sync (m16n8k16, float32 accumulate). It is the main
-//   path's kernel; wgmma, TMA and warp specialisation are later work.
+// * flash_attention_wgmma_kernel (bfloat16, 16-byte aligned rows: every
+//   contiguous layout, so the serve path) is built for Hopper: TMA loads
+//   into a shared-memory ring, a producer warpgroup and two consumer
+//   warpgroups, both products on wgmma (float32 accumulate). Its design
+//   notes are with it, below.
 // * flash_attention_kernel (float32, or bfloat16 through unaligned strides)
 //   runs float32 FMAs on the CUDA cores (67 TFLOP/s peak): exact float32
 //   where the tensor cores would round to TF32.
 //
-// Shared design (simple and right first): grid (ceil(Sq/BQ), H, B), one
-// block per (query tile, head, batch). The block stages its Q tile once,
-// then walks the key tiles inside the causal/window band (tiles wholly
-// outside it are skipped), staging each K and V tile in shared memory. Key
-// rows at or past Skv are never loaded: they are stored as 0 and masked.
-// Masked scores are -inf and give p = 0 exactly, so a tile in which a row
-// has no valid key leaves its state untouched (the Pallas kernel instead
-// accumulates garbage there that the first valid tile multiplies by
-// exp(-1e30 - m) = 0: the same result). A row with no valid key at all gets
-// o = 0.
+// Shared design: one block per (query tile, head, batch). The block walks
+// the key tiles inside the causal/window band (tiles wholly outside it are
+// skipped). Key rows at or past Skv are never read: they are zero in shared
+// memory and masked. Masked scores are -inf and give p = 0 exactly, so a
+// tile in which a row has no valid key leaves its state untouched (the
+// Pallas kernel instead accumulates garbage there that the first valid tile
+// multiplies by exp(-1e30 - m) = 0: the same result). A row with no valid
+// key at all gets o = 0.
 //
 // CUDA-core kernel: K is staged transposed and everything as float32. Each
 // thread owns a TR x TC patch of the score tile and the matching TR rows x
 // D/8 columns of the accumulator; the CG = 8 threads that share rows are
 // neighbouring lanes and reduce the row max and row sum with warp shuffles.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -251,54 +254,87 @@ flash_attention_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores (mma.sync m16n8k16, float32 accumulate).
+// bfloat16 on the tensor cores, for Hopper (TMA ring, warp-specialised wgmma).
 //
-// Block = 4 warps = MBQ query rows; each warp owns 16 rows and walks the key
-// tiles of the band. Q, K and V tiles sit in shared memory row-major as
-// bfloat16 (rows padded by 8 elements, which makes the fragment loads
-// bank-conflict free). S = Q.K^T runs on the tensor cores with bf16 x bf16
-// products exact in float32. The online softmax works on the S fragments in
-// registers (the 4 lanes of a quad share a row). For O += P.V, P is split
-// into two bfloat16 terms, P = hi + lo with hi = bf16(P) and
-// lo = bf16(P - hi), and both are multiplied: P keeps 16 significant bits
-// and every product with a bf16 v is exact in float32, so p.v stays float32
-// to well below the output's bfloat16 rounding, as in the Pallas kernel
-// (which casts V to float32). V's B fragments come from ldmatrix.trans.
-// Needs 16-byte aligned rows (strides multiples of 8 elements); the
-// wrapper sends anything else to the CUDA-core kernel above.
+// Block = 3 warpgroups over a 128-row query tile; grid (H * B, query tiles).
+// What each choice addresses:
+//
+// * Loads overlap the math. Warpgroup 0 is the producer: it gives up its
+//   registers (setmaxnreg) and one thread issues every load, the Q tile
+//   once, then the K and V tiles of the band into a ring of STAGES stages,
+//   each guarded by a "full" mbarrier (the TMA's byte count) and an "empty"
+//   one (one arrival per consumer warp). TMA reads q, k and v through
+//   rank-4 tensor maps over (d, head, seq, batch) in the caller's strides,
+//   so one kernel reads both layouts, and it zero-fills rows past Sq or Skv:
+//   nothing past a sequence's end, or of a neighbouring head, is read.
+// * Both products on wgmma, the only path to the tensor cores' full rate.
+//   Warpgroups 1 and 2 are consumers, 64 query rows each, with raised
+//   registers. S = Q.K^T is one wgmma per k16 step, both operands in shared
+//   memory (128-byte swizzle, 64-byte at d 32: a d-128 or d-256 row is 2 or
+//   4 column blocks that the descriptors walk). The two consumers run free:
+//   one's softmax runs while the other's wgmma keep the tensor cores busy.
+// * p.v float32-exact at wgmma rate: O += P.V takes P from registers (a
+//   16-bit accumulator fragment is the A-operand layout), split into
+//   hi = bf16(P) and lo = bf16(P - hi); both go through the tensor cores
+//   into the same float32 accumulator. P keeps 16 significant bits and every
+//   product with a bf16 v is exact, so p.v stays float32 to well below the
+//   output's rounding, as in the Pallas kernel. V's tile (keys x d, d
+//   contiguous) is the B operand in MN-major form (transpose bit set).
+// * Little softmax work per score: base 2 with d^-1/2 log2(e) folded into
+//   one FMA before exp2; masks only on tiles that cross the diagonal, the
+//   window edge or Skv, as two compares against a row's key range; a
+//   warpgroup skips the tiles in which none of its rows keeps a key.
+// * No spills: K/V tiles are 128 keys at d <= 128 and 64 at d 256, which
+//   keeps S, P and the 64 x d float32 accumulator within the consumers' 240
+//   registers. Shared memory: Q + 2 stages of K and V, 160 KB at d 128 and
+//   192 KB at d 256 (one block per SM).
+// * No causal tail: query tiles run in descending order, so the longest
+//   causal tiles start first and the short ones fill the end.
+// * No driver call per launch: the shared-memory limit is raised once per
+//   device; the tensor maps are encoded on the host at each launch.
+// * Epilogue: normalise, round once to bfloat16, stage the rows in the
+//   warpgroup's own part of the Q tile and store them with 16-byte stores,
+//   the ragged last tile masked.
+// Needs 16-byte aligned rows (strides multiples of 8 elements) and Skv > 0;
+// the launcher sends anything else to the CUDA-core kernel above.
 // ---------------------------------------------------------------------------
 
-constexpr int MBQ = 64;          // query rows per block (16 per warp)
-constexpr int MBKV = 64;         // keys per tile
-constexpr int MTHREADS = 128;
+constexpr int WQ = 128;            // query rows per block
+constexpr int WTHREADS = 384;      // producer + two consumer warpgroups
+constexpr int STAGES = 2;          // K/V ring depth
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240; // 128 x (24 + 2 x 240) <= 65536
 
 template <int D>
-constexpr int mma_smem_bytes() {
-  return (MBQ + 2 * MBKV) * (D + 8) * 2;
-}
+struct Tile {
+  static constexpr int BN = D == 256 ? 64 : 128;   // keys per K/V tile
+  static constexpr int CB = D < 64 ? D : 64;       // elements per swizzle row
+  static constexpr int SW = 2 * CB;                // swizzle row, bytes
+  static constexpr int SWZ = hopper::swizzle_mode(SW);
+  static constexpr int Q_BYTES = WQ * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;      // one K or V tile
+  // 1024 for aligning the tiles, then Q, the K ring, the V ring and the
+  // barriers (Q, STAGES full, STAGES empty)
+  static constexpr int SMEM =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
+};
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+struct WArgs {
+  void* o;
+  long long o_sb, o_ss, o_sh;
+  int H, G, Sq, Skv;
+  int causal, window, q_offset;
+  float scale_log2;                // d^-1/2 * log2(e)
+  int qpos[3], kpos[3], vpos[3];   // tensor-map dimension of head, seq, batch
+};
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// 2^x in one MUFU instruction; results below 2^-126 flush to 0, which p
+// and the correction factor can take (they are summed against a row max of
+// p = 1).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
@@ -314,198 +350,345 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
-// rows r of src (row stride `ss` elements) -> dst rows of D + 8; rows at or
-// past `valid` are written as zeros and never read from device memory.
+// The rows [row, row + ROWS) of (head, batch) as D / CB column blocks.
 template <int D, int ROWS>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long ss, int valid) {
-  constexpr int CH = D / 8;        // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += MTHREADS) {
-    const int r = idx / CH, c = idx % CH;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * ss + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = v;
+__device__ __forceinline__ void load_tile(const CUtensorMap* map,
+                                          const int (&pos)[3], uint32_t dst,
+                                          uint32_t bar, int head, int row,
+                                          int b) {
+  using T = Tile<D>;
+  int c[3];
+#pragma unroll
+  for (int d = 1; d <= 3; ++d)
+    c[d - 1] = pos[0] == d ? head : pos[1] == d ? row : b;
+#pragma unroll
+  for (int cb = 0; cb < D / T::CB; ++cb)
+    hopper::tma_load_4d(dst + cb * ROWS * T::SW, map, bar, cb * T::CB, c[0],
+                        c[1], c[2]);
+}
+
+// Byte offset of (row, col) in a tile of `rows` rows stored as swizzled
+// column blocks (the TMA layout).
+template <int D>
+__device__ __forceinline__ int tile_offset(int rows, int row, int col) {
+  using T = Tile<D>;
+  return (col / T::CB) * rows * T::SW + row * T::SW +
+         ((((col % T::CB) / 8) ^ (row % (T::SW / 16))) * 16) + (col % 8) * 2;
+}
+
+// S = Q.K^T for the warpgroup's 64 query rows (at `qa` in the Q tile) and
+// the key tile at `kt`: one wgmma per k16 step, both operands K-major.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[Tile<D>::BN / 2],
+                                         uint32_t qa, uint32_t kt) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int cb = kk * 16 / T::CB, kin = (kk * 16 % T::CB) * 2;
+    hopper::wgmma_ss<T::BN>(
+        sc, hopper::smem_desc(qa + cb * WQ * T::SW + kin, 16, 8 * T::SW,
+                              T::SWZ),
+        hopper::smem_desc(kt + cb * T::BN * T::SW + kin, 16, 8 * T::SW,
+                          T::SWZ),
+        kk > 0);
   }
 }
 
+// O += P.V for the value tile at `vt` (MN-major B): per k16 step of keys,
+// the hi and then the lo term of P.
 template <int D>
-__global__ void __launch_bounds__(MTHREADS)
-flash_attention_mma_kernel(const Args a) {
-  constexpr int ST = D + 8;        // shared row stride, elements
-  constexpr int NS = MBKV / 8;     // score n-tiles per warp
-  constexpr int NO = D / 8;        // output n-tiles per warp
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* Ks = Qs + MBQ * ST;
-  __nv_bfloat16* Vs = Ks + MBKV * ST;
+__device__ __forceinline__ void issue_pv(
+    float (&o)[D / 2], const uint32_t (&ph)[Tile<D>::BN / 16][4],
+    const uint32_t (&pl)[Tile<D>::BN / 16][4], uint32_t vt) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < T::BN / 16; ++kk) {
+    const uint64_t dv = hopper::smem_desc(vt + kk * 16 * T::SW,
+                                          T::BN * T::SW, 8 * T::SW, T::SWZ);
+    hopper::wgmma_rs_tb<D>(o, ph[kk], dv);
+    hopper::wgmma_rs_tb<D>(o, pl[kk], dv);
+  }
+}
 
-  const int q0 = blockIdx.x * MBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / a.G;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int gid = lane / 4, tig = lane % 4;
+// One online-softmax step on a finished score tile, in place (scores ->
+// p), for the thread's rows qp0 and qp1 = qp0 + 8: sc[4j + e] is (qp0, key
+// k0 + 8j + 2 (lane % 4) + e), sc[4j + 2 + e] the same key for qp1. Updates
+// the running max m (base 2: scores times d^-1/2 log2 e) and sum l, and
+// returns in corr the factor by which o must be scaled.
+template <int BN>
+__device__ __forceinline__ void softmax_step(
+    float (&sc)[BN / 2], const WArgs& a, int k0, int qw, int qp0, int lane,
+    float (&m)[2], float (&l)[2], float (&corr)[2]) {
+  const int qp1 = qp0 + 8;
+  // Only a tile that crosses the diagonal, the window edge or Skv is
+  // masked: a key outside a row's [lo, hi) (relative to the thread's first
+  // key) scores -inf.
+  if (k0 + BN > a.Skv || (a.causal && k0 + BN - 1 > qw) ||
+      (a.window > 0 && qw + 63 - k0 >= a.window)) {
+    const int c0 = k0 + 2 * (lane % 4);
+    const int hi0 = (a.causal ? min(a.Skv, qp0 + 1) : a.Skv) - c0;
+    const int hi1 = (a.causal ? min(a.Skv, qp1 + 1) : a.Skv) - c0;
+    const int lo0 = a.window > 0 ? qp0 - a.window + 1 - c0 : -1;
+    const int lo1 = a.window > 0 ? qp1 - a.window + 1 - c0 : -1;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + e;
+        if (c < lo0 || c >= hi0) sc[4 * j + e] = -INFINITY;
+        if (c < lo1 || c >= hi1) sc[4 * j + 2 + e] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  float ms[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r] * a.scale_log2);
+    // A row with no valid key so far subtracts 0 instead of -inf: its p
+    // are exp2(-inf) = 0 and its correction 0 keeps o = l = 0.
+    ms[r] = mn == -INFINITY ? 0.f : mn;
+    corr[r] = exp2_ftz(m[r] - ms[r]);
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] =
+          exp2_ftz(fmaf(sc[4 * j + e], a.scale_log2, -ms[e / 2]));
+      sum[e / 2] += sc[4 * j + e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l[r] = l[r] * corr[r] + sum[r];
+  }
+}
 
-  using bf16 = __nv_bfloat16;
-  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  bf16* og = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+// o *= corr row by row, then P (the finished p tile) -> its A fragments
+// for keys 16 kk .. 16 kk + 15, hi and lo terms.
+template <int D>
+__device__ __forceinline__ void rescale_and_split(
+    float (&o)[D / 2], const float (&corr)[2],
+    const float (&sc)[Tile<D>::BN / 2], uint32_t (&ph)[Tile<D>::BN / 16][4],
+    uint32_t (&pl)[Tile<D>::BN / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < D / 2; ++n) o[n] *= corr[(n / 2) % 2];
+#pragma unroll
+  for (int kk = 0; kk < Tile<D>::BN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
+                 pl[kk][r]);
+}
 
-  stage_rows<D, MBQ>(Qs, qg + q0 * a.q_ss, a.q_ss, a.Sq - q0);
+template <int D>
+__global__ void __launch_bounds__(WTHREADS, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const WArgs a) {
+  using T = Tile<D>;
+  constexpr int BN = T::BN, SW = T::SW;
+  extern __shared__ unsigned char smem_w[];
+  const uint32_t raw = hopper::smem_u32(smem_w);
+  const uint32_t sq = (raw + 1023u) & ~1023u;             // Q tile
+  const uint32_t sk = sq + T::Q_BYTES;                    // K ring
+  const uint32_t sv = sk + STAGES * T::KV_BYTES;          // V ring
+  const uint32_t bar_q = sv + STAGES * T::KV_BYTES;       // Q landed
+  const uint32_t bar_full = bar_q + 8;                    // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * STAGES;       // + 8 s
 
-  const int rows = min(MBQ, a.Sq - q0);
+  const int nq = (a.Sq + WQ - 1) / WQ;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * WQ;        // longest first
+  const int h = blockIdx.x % a.H, b = blockIdx.x / a.H, hk = h / a.G;
   const int qlo = a.q_offset + q0;
   int kend = a.Skv;
-  if (a.causal) kend = min(kend, qlo + rows);
+  if (a.causal) kend = min(kend, qlo + min(WQ, a.Sq - q0));
   int kbeg = 0;
   if (a.window > 0) kbeg = max(0, qlo - a.window + 1);
-  kbeg = (kbeg / MBKV) * MBKV;
+  kbeg = (kbeg / BN) * BN;
+  const int ntiles = kend > kbeg ? (kend - kbeg + BN - 1) / BN : 0;
 
-  const int wrow = warp * 16;               // the warp's first row
-  const int qp0 = qlo + wrow + gid;         // positions of its two rows
-  const int qp1 = qp0 + 8;
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = kbeg; k0 < kend; k0 += MBKV) {
-    __syncthreads();               // previous tile fully consumed
-    stage_rows<D, MBKV>(Ks, kg + k0 * a.k_ss, a.k_ss, a.Skv - k0);
-    stage_rows<D, MBKV>(Vs, vg + k0 * a.v_ss, a.v_ss, a.Skv - k0);
-    __syncthreads();
-
-    // Skip the tile for this warp when its 16 rows keep none of its keys.
-    bool active = true;
-    if (a.causal && k0 > qlo + wrow + 15) active = false;
-    if (a.window > 0 && (qlo + wrow) - (k0 + MBKV - 1) >= a.window)
-      active = false;
-    if (!active) continue;
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* qa = Qs + (wrow + gid) * ST + kk * 16 + tig * 2;
-      const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * ST);
-      const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * ST + 8);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const bf16* kb = Ks + (j * 8 + gid) * ST + kk * 16 + tig * 2;
-        mma_bf16(s[j], a0, a1, a2, a3, ld32(kb), ld32(kb + 8));
-      }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(bar_full + 8 * s, 1);
+      hopper::mbar_init(bar_empty + 8 * s, 8);   // the 8 consumer warps
     }
-
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kpos = k0 + j * 8 + tig * 2 + e;
-        s[j][e] = keep(a, qp0, kpos) ? s[j][e] * a.scale : -INFINITY;
-        s[j][2 + e] = keep(a, qp1, kpos) ? s[j][2 + e] * a.scale : -INFINITY;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off *= 2) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    // A row with no valid key so far keeps p = 0 and its state (corr 1).
-    const bool v0 = mn0 != -INFINITY, v1 = mn1 != -INFINITY;
-    const float corr0 = v0 ? expf(m0 - mn0) : 1.f;
-    const float corr1 = v1 ? expf(m1 - mn1) : 1.f;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = v0 ? expf(s[j][e] - mn0) : 0.f;        // masked: 0
-        s[j][2 + e] = v1 ? expf(s[j][2 + e] - mn1) : 0.f;
-        sum0 += s[j][e];
-        sum1 += s[j][2 + e];
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off *= 2) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    m0 = mn0;
-    m1 = mn1;
-    l0 = l0 * corr0 + sum0;
-    l1 = l1 * corr1 + sum1;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= corr0;
-      o[n][1] *= corr0;
-      o[n][2] *= corr1;
-      o[n][3] *= corr1;
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < MBKV / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-      // lane's row address for ldmatrix: matrix lane/8 covers keys
-      // +((lane/8)&1)*8 and columns +(lane/16)*8 of a 16x16 block
-      const bf16* vrow = Vs + (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) * ST
-                         + (lane / 16) * 8;
-#pragma unroll
-      for (int n = 0; n < NO / 2; ++n) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vrow + n * 16);
-        mma_bf16(o[2 * n], hi[0], hi[1], hi[2], hi[3], bv[0], bv[1]);
-        mma_bf16(o[2 * n], lo[0], lo[1], lo[2], lo[3], bv[0], bv[1]);
-        mma_bf16(o[2 * n + 1], hi[0], hi[1], hi[2], hi[3], bv[2], bv[3]);
-        mma_bf16(o[2 * n + 1], lo[0], lo[1], lo[2], lo[3], bv[2], bv[3]);
-      }
-    }
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  const int r0 = q0 + wrow + gid, r1 = r0 + 8;
+  // The warpgroup's role, warp-uniform as the compiler can see (which
+  // setmaxnreg needs to take effect).
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0 && ntiles > 0) {
+      hopper::prefetch_tensormap(&tq);
+      hopper::prefetch_tensormap(&tk);
+      hopper::prefetch_tensormap(&tv);
+      hopper::mbar_arrive_expect_tx(bar_q, T::Q_BYTES);
+      load_tile<D, WQ>(&tq, a.qpos, sq, bar_q, h, q0, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES)      // the consumers released this stage's last use
+          hopper::mbar_wait(bar_empty + 8 * s, (i / STAGES - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        hopper::mbar_arrive_expect_tx(full, 2 * T::KV_BYTES);
+        const int k0 = kbeg + i * BN;
+        load_tile<D, BN>(&tk, a.kpos, sk + s * T::KV_BYTES, full, hk, k0, b);
+        load_tile<D, BN>(&tv, a.vpos, sv + s * T::KV_BYTES, full, hk, k0, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int r0 = q0 + 64 * cw;                  // the warpgroup's first row
+    const int qw = a.q_offset + r0;               // and its position
+    const int qp0 = qw + 16 * warp + lane / 4;    // the thread's first row
+    const bool live = r0 < a.Sq;
+    const uint32_t qa = sq + 64 * cw * SW;        // its rows of the Q tile
+
+    // Tiles [ib, ie) of the block's band keep a key for some row of this
+    // warpgroup; it only waits for and releases the others (in order, as
+    // the ring's phases need).
+    int ib = 0, ie = live ? ntiles : 0;
+    if (live && a.causal) {
+      const int t = qw + 63 - kbeg;
+      ie = t < 0 ? 0 : min(ie, t / BN + 1);
+    }
+    if (live && a.window > 0) {
+      const int t = qw - a.window - BN + 2 - kbeg;
+      ib = t > 0 ? (t + BN - 1) / BN : 0;
+    }
+    ib = min(ib, ie);
+
+    float o[D / 2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int col = n * 8 + tig * 2;
-    if (r0 < a.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(og + r0 * a.o_ss + col) =
-          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    if (r1 < a.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(og + r1 * a.o_ss + col) =
-          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+    for (int n = 0; n < D / 2; ++n) o[n] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+    if (ntiles > 0) hopper::mbar_wait(bar_q, 0);
+
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % STAGES;
+      hopper::mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+      if (ib <= i && i < ie) {
+        float sc[BN / 2];
+        hopper::wgmma_fence();
+        issue_qk<D>(sc, qa, sk + s * T::KV_BYTES);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(sc);
+        softmax_step<BN>(sc, a, kbeg + i * BN, qw, qp0, lane, m, l, corr);
+        uint32_t ph[BN / 16][4], pl[BN / 16][4];
+        rescale_and_split<D>(o, corr, sc, ph, pl);
+        hopper::fence_operand(o);
+        hopper::wgmma_fence();
+        issue_pv<D>(o, ph, pl, sv + s * T::KV_BYTES);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(o);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(bar_empty + 8 * s);
+    }
+    if (!live) return;
+
+    // Epilogue: o / l rounded once to bf16, staged in this warpgroup's rows
+    // of the Q tile (no longer read), then 16-byte stores of the valid rows.
+    const float inv0 = 1.f / fmaxf(l[0], 1e-30f);
+    const float inv1 = 1.f / fmaxf(l[1], 1e-30f);
+    unsigned char* qs = smem_w + (sq - raw);
+    const int rr = 64 * cw + 16 * warp + lane / 4;
+    hopper::fence_proxy_async();
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = 8 * n + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(qs + tile_offset<D>(WQ, rr, col)) =
+          __floats2bfloat162_rn(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+      *reinterpret_cast<__nv_bfloat162*>(qs +
+                                         tile_offset<D>(WQ, rr + 8, col)) =
+          __floats2bfloat162_rn(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+    }
+    hopper::named_sync(1 + cw, 128);
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb +
+                        h * a.o_sh;
+    for (int idx = tid; idx < 64 * (D / 8); idx += 128) {
+      const int r = idx / (D / 8), col = 8 * (idx % (D / 8));
+      if (r0 + r < a.Sq)
+        *reinterpret_cast<uint4*>(og + (r0 + r) * a.o_ss + col) =
+            *reinterpret_cast<const uint4*>(
+                qs + tile_offset<D>(WQ, 64 * cw + r, col));
+    }
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// Raises a kernel's dynamic shared-memory limit once per device (`ready` is
+// the calling launcher's own flag set).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&ready)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && ready[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) ready[dev] = true;
+  return err;
+}
+
 template <int D>
-int launch_mma(const Args& a, int B, cudaStream_t stream) {
-  constexpr int bytes = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_mma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+int launch_wgmma(const Args& a, int B, int KV, cudaStream_t stream) {
+  using T = Tile<D>;
+  static bool ready[kMaxDevices] = {};
+  cudaError_t err = allow_smem(flash_attention_wgmma_kernel<D>, T::SMEM,
+                               ready);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Sq + MBQ - 1) / MBQ, a.H, B);
-  flash_attention_mma_kernel<D><<<grid, MTHREADS, bytes, stream>>>(a);
+  WArgs w{a.o, a.o_sb, a.o_ss, a.o_sh, a.H, a.G, a.Sq, a.Skv,
+          a.causal, a.window, a.q_offset,
+          (float)(1.4426950408889634 / sqrt((double)D)), {}, {}, {}};
+  CUtensorMap tq, tk, tv;
+  const long long qext[3] = {a.H, a.Sq, B}, kext[3] = {KV, a.Skv, B};
+  const long long qst[3] = {a.q_sh, a.q_ss, a.q_sb};
+  const long long kst[3] = {a.k_sh, a.k_ss, a.k_sb};
+  const long long vst[3] = {a.v_sh, a.v_ss, a.v_sb};
+  int rc = hopper::make_tensor_map_4d(&tq, a.q, D, qext, qst, 1, T::CB, WQ,
+                                      w.qpos);
+  if (rc == 0)
+    rc = hopper::make_tensor_map_4d(&tk, a.k, D, kext, kst, 1, T::CB, T::BN,
+                                    w.kpos);
+  if (rc == 0)
+    rc = hopper::make_tensor_map_4d(&tv, a.v, D, kext, vst, 1, T::CB, T::BN,
+                                    w.vpos);
+  if (rc != 0) return rc;
+  dim3 grid(a.H * B, (a.Sq + WQ - 1) / WQ);
+  flash_attention_wgmma_kernel<D><<<grid, WTHREADS, T::SMEM, stream>>>(
+      tq, tk, tv, w);
   return (int)cudaGetLastError();
 }
 
-int launch_mma_d(const Args& a, int B, int D, cudaStream_t stream) {
+int launch_wgmma_d(const Args& a, int B, int KV, int D, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch_mma<32>(a, B, stream);
-    case 64: return launch_mma<64>(a, B, stream);
-    case 128: return launch_mma<128>(a, B, stream);
-    case 256: return launch_mma<256>(a, B, stream);
+    case 32: return launch_wgmma<32>(a, B, KV, stream);
+    case 64: return launch_wgmma<64>(a, B, KV, stream);
+    case 128: return launch_wgmma<128>(a, B, KV, stream);
+    case 256: return launch_wgmma<256>(a, B, KV, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -513,9 +696,9 @@ int launch_mma_d(const Args& a, int B, int D, cudaStream_t stream) {
 template <typename T, int D, int BQ>
 int launch(const Args& a, int B, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D, BQ>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D, BQ>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static bool ready[kMaxDevices] = {};
+  cudaError_t err = allow_smem(flash_attention_kernel<T, D, BQ>, bytes,
+                               ready);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
   flash_attention_kernel<T, D, BQ><<<grid, (BQ / TR) * CG, bytes, stream>>>(
@@ -540,8 +723,8 @@ int launch_d(const Args& a, int B, int D, cudaStream_t stream) {
 // cudaGetLastError() (or cudaErrorInvalidValue for an unsupported head_dim
 // or dtype); the Python wrapper raises when it is not 0. Strides are in
 // elements; dtype 0 = float32, 1 = bfloat16. tensor_cores = 1 (bfloat16
-// only, every row 16-byte aligned) takes the mma.sync kernel, otherwise the
-// CUDA-core kernel runs.
+// only, every row 16-byte aligned) takes the wgmma kernel when there is at
+// least one key, otherwise the CUDA-core kernel runs.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_ss, long long q_sh,
@@ -559,7 +742,8 @@ extern "C" int flash_attention_launch(
          (float)(1.0 / sqrt((double)D))};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return launch_d<float>(a, B, D, s);
-  if (dtype == 1 && tensor_cores) return launch_mma_d(a, B, D, s);
+  if (dtype == 1 && tensor_cores && Skv > 0)
+    return launch_wgmma_d(a, B, KV, D, s);
   if (dtype == 1) return launch_d<__nv_bfloat16>(a, B, D, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,9 +19,12 @@ bfloat16, head_dim 32/64/128/256, read in place through strides in either
 layout) or raises; a CPU tensor takes :func:`flash_attention_ref` (or
 :func:`flash_attention_bshd_ref`). A failed
 build or launch is never swapped for the plain version. Inside the CUDA
-source, bfloat16 with 16-byte aligned rows (every contiguous layout) runs on
-the tensor cores (``mma.sync``); float32, and bfloat16 read through odd
-strides, run on the CUDA cores in full float32. Both count as one launch.
+source, bfloat16 with 16-byte aligned rows (every contiguous layout) runs
+the Hopper kernel: TMA loads into a shared-memory ring fed by a producer
+warpgroup, two consumer warpgroups running both products on ``wgmma``
+(P·V float32-exact through a hi + lo bf16 split of P), helpers in
+``csrc/hopper.cuh``; float32, and bfloat16 read through odd strides, run on
+the CUDA cores in full float32. Both count as one launch.
 
 One corner differs: a query row with no valid key at all (only possible
 with a window or ``q_offset`` that leaves it none) is the mean of v under

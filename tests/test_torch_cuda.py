@@ -12,7 +12,8 @@ the plain version (float32, other summation order), bitwise equal across
 launches; whole scenarios with ledgers exactly equal and F1 within the
 port's bound of 5e-3 (PERF.md); ``flash_attention`` within the JAX sweep's
 max abs 2e-5 (float32) and 2e-2 (bfloat16) of its plain version, bitwise
-equal across launches; ``ssd_scan`` within the sweep's relative 3e-5
+equal across launches and across the (B,S,H,d) and (B,H,S,d) layouts
+(including edge cases of the wgmma kernel's TMA path at every head dim); ``ssd_scan`` within the sweep's relative 3e-5
 (float32) / 5e-2 (bfloat16) and ``rglru_scan`` (float32 only) within its
 absolute 1e-4, both bitwise equal across launches; the reduced LMs' logits
 within 1e-5 relative."""
@@ -85,6 +86,27 @@ FLASH_SHAPES = [(1, 24, 8, 777, 777, 128, True, 0, 0, "bfloat16")] + \
     FLASH_EXTRA
 
 
+def _wgmma_edge_shapes():
+    """bfloat16 cases aimed at the wgmma kernel's TMA path, at every head
+    dim: Sq and Skv in {1, 63, 65, 129, 2049} (ragged against the 128-row
+    query tile and the 64/128-key tiles), G = H / KV in {1, 3, 16}, window
+    edges that fall inside a tile, and q_offset with Sq = 1."""
+    out = []
+    for d in (32, 64, 128, 256):
+        out += [(2, 3, 1, 63, 63, d, True, 0, 0),          # G 3
+                (1, 16, 1, 65, 129, d, False, 0, 0),       # G 16 (MQA)
+                (2, 4, 4, 129, 65, d, False, 0, 0),        # G 1
+                (1, 6, 2, 2049, 2049, d, True, 0, 0),
+                (2, 3, 3, 1, 1, d, True, 0, 0),
+                (2, 16, 1, 1, 2049, d, True, 0, 2048),     # q_offset, Sq 1
+                (1, 6, 2, 1000, 1000, d, True, 100, 0),    # window edges
+                (1, 3, 1, 129, 2049, d, False, 700, 1900)]  # window, offset
+    return [s + ("bfloat16",) for s in out]
+
+
+FLASH_SHAPES += _wgmma_edge_shapes()
+
+
 @pytest.mark.parametrize("shape", FLASH_SHAPES,
                          ids=[str(s) for s in FLASH_SHAPES])
 def test_flash_kernel_matches_plain_version(cuda, shape):
@@ -103,6 +125,24 @@ def test_flash_kernel_matches_plain_version(cuda, shape):
     bhsd = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), **kw)
     assert torch.equal(bhsd.transpose(1, 2), out)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_wgmma_reads_each_layout_through_its_own_tensor_map(cuda, d):
+    """A contiguous (B,H,S,d) tensor (seq stride d, head stride S d) and
+    q/k/v as strided views of one fused (B,S,H+2KV,d) projection give the
+    (B,S,H,d) result bit for bit: the tensor maps follow the strides."""
+    shape = (2, 6, 2, 300, 300, d, True, 0, 0, "bfloat16")
+    q, k, v = flash_inputs(shape, seed=7, device=cuda)
+    out = fa.flash_attention_bshd(q, k, v)
+    bhsd = fa.flash_attention(*(t.transpose(1, 2).contiguous()
+                                for t in (q, k, v)))
+    assert bhsd.is_contiguous()
+    assert torch.equal(bhsd.transpose(1, 2), out)
+    fused = torch.cat([q, k, v], dim=2)
+    views = fused[:, :, :6], fused[:, :, 6:8], fused[:, :, 8:]
+    assert views[0].stride(1) == 10 * d
+    assert torch.equal(fa.flash_attention_bshd(*views), out)
 
 
 def test_flash_wrapper_refuses_what_it_cannot_run(cuda):
