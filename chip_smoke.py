@@ -14,7 +14,8 @@ failure raises and the script exits non-zero without printing a result:
    ``nvcc`` per source, all started together; then a ``{"ptxas": ...}``
    line with the registers and spill bytes of every kernel function, and a
    check that no instantiation of the bf16 tensor-core flash kernel (head
-   dims 32, 64, 128, 256) spills;
+   dims 32, 64, 128, 256) or of the three tensor-core ``ssd_scan`` kernels
+   (N 64, 128) spills;
 3. kernel — ``loo_trials`` against its plain PyTorch version on the card at
    every main-path shape (rtol 1e-5, atol floor 1e-5), two launches
    bitwise equal, and CUDA-event times of kernel, plain version and bound;
@@ -32,6 +33,8 @@ failure raises and the script exits non-zero without printing a result:
    the chunk does not divide) and the JAX sweep's four shapes, the latter
    also against the sequential oracle (relative error 3e-5 in float32,
    5e-2 in bfloat16, on y and on the state), two launches bitwise equal;
+   each row names its route (``tensor_cores`` or ``cuda_cores``) and
+   keeps the CUDA-core kernel's earlier time as ``earlier_us``;
 6. rglru — ``rglru_scan`` against its plain version and the sequential
    oracle at recurrentgemma-9b's prefill shapes (W 4096, float32; B 4 x
    S 2048 and B 1 at each batcher prompt length) and the JAX sweep's four
@@ -179,6 +182,20 @@ RGLRU_SHAPES = [(SERVE_BATCH, SERVE_PROMPT, 4096)] + [
     (1, n, 4096) for n in HYBRID_PROMPTS] + [
     (2, 256, 256), (1, 128, 128), (3, 512, 384), (1, 64, 512)]
 SCAN_REPS = 10
+# The bf16 tensor-core ssd_scan kernels (ptxas labels); none may spill.
+SSD_TC_KERNELS = ("ssd_chunk_state_kernel<64>", "ssd_chunk_state_kernel<128>",
+                  "ssd_state_pass_kernel", "ssd_chunk_scan_kernel<64>",
+                  "ssd_chunk_scan_kernel<128>")
+# Each SSD_SHAPES row's time (us) under the CUDA-core kernel alone, before
+# the tensor-core route existed (PERF.md §6; H100 80GB HBM3, 700 W).
+SSD_EARLIER_US = [3180.8, 35.9, 117.7, 190.3, 378.5, 588.4, 742.9, 1113.8,
+                  1505.9, 3178.8, 80.0, 49.6, 278.0, 207.8, 81.2, 50.7,
+                  271.0, 205.3]
+# The device kernels a wrapper launches, by name, where its own name is not
+# part of theirs (profiler shares).
+DEVICE_KERNELS = {"ssd_scan": ("ssd_scan_kernel", "ssd_chunk_state_kernel",
+                               "ssd_state_pass_kernel",
+                               "ssd_chunk_scan_kernel")}
 # The TPU kernel (Pallas body, file:line) each CUDA kernel replaces.
 REPLACES = {"loo_trials": "src/repro/kernels/loo_trials.py:51",
             "flash_attention": "src/repro/kernels/flash_attention.py:25",
@@ -432,9 +449,12 @@ def phase_ssd(ss):
         err = max(rel_err(y, yp), rel_err(st, stp))
         check(err <= SSD_TOL[dtype], f"ssd_scan vs plain at {shape}: rel "
                                      f"err {err}")
-        row = {"shape": list(shape), "rel_err": err, "max_abs_err": max(
-            float((y.float() - yp.float()).abs().max()),
-            float((st.float() - stp.float()).abs().max()))}
+        row = {"shape": list(shape), "route": "tensor_cores" if
+               ss.tensor_core_route(args[0], args[3], args[4], Q) else
+               "cuda_cores", "rel_err": err, "max_abs_err": max(
+                   float((y.float() - yp.float()).abs().max()),
+                   float((st.float() - stp.float()).abs().max())),
+               "earlier_us": SSD_EARLIER_US[i]}
         if shape[:6] in SSD_TEST_SHAPES:
             yo, sto = ss.ssd_reference(*args)          # the sequential oracle
             row["rel_err_oracle"] = max(rel_err(y, yo), rel_err(st, sto))
@@ -589,7 +609,8 @@ def kernel_shares_of_prefill(model, batch, names):
     total = sum(e.time_range.elapsed_us() for e in kernels)
     check(total > 0, "profiler saw no device time in prefill")
     return {n: sum(e.time_range.elapsed_us() for e in kernels
-                   if n in e.name) / total for n in names}, total / 1e3
+                   if any(k in e.name for k in DEVICE_KERNELS.get(n, (n,))))
+            / total for n in names}, total / 1e3
 
 
 def decode_vs_prefill(model, tokens):
@@ -900,6 +921,11 @@ def main() -> int:
         check(rep is not None, f"no ptxas report for {FLASH_TC_KERNEL}<{d}>")
         check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
               f"{FLASH_TC_KERNEL}<{d}> spills: {rep}")
+    for name in SSD_TC_KERNELS:
+        rep = ptxas["ssd_scan"].get(name)
+        check(rep is not None, f"no ptxas report for {name}")
+        check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
+              f"{name} spills: {rep}")
 
     # 3.-6. every kernel against its plain version
     rows, worst = phase_kernel(loo)

@@ -328,28 +328,6 @@ struct WArgs {
   int qpos[3], kpos[3], vpos[3];   // tensor-map dimension of head, seq, batch
 };
 
-// 2^x in one MUFU instruction; results below 2^-126 flush to 0, which p
-// and the correction factor can take (they are summed against a row max of
-// p = 1).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) -> packed bf16 pairs hi = bf16(x, y) and lo = bf16(x - hi, y - hi).
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
 // The rows [row, row + ROWS) of (head, batch) as D / CB column blocks.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(const CUtensorMap* map,
@@ -445,6 +423,8 @@ __device__ __forceinline__ void softmax_step(
     mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
     mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
+  // exp2_ftz flushes results below 2^-126 to 0, which p and the
+  // correction factor can take (they are summed against a row max of 1).
   float ms[2], sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -454,7 +434,7 @@ __device__ __forceinline__ void softmax_step(
     // A row with no valid key so far subtracts 0 instead of -inf: its p
     // are exp2(-inf) = 0 and its correction 0 keeps o = l = 0.
     ms[r] = mn == -INFINITY ? 0.f : mn;
-    corr[r] = exp2_ftz(m[r] - ms[r]);
+    corr[r] = hopper::exp2_ftz(m[r] - ms[r]);
     m[r] = mn;
   }
 #pragma unroll
@@ -462,7 +442,7 @@ __device__ __forceinline__ void softmax_step(
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       sc[4 * j + e] =
-          exp2_ftz(fmaf(sc[4 * j + e], a.scale_log2, -ms[e / 2]));
+          hopper::exp2_ftz(fmaf(sc[4 * j + e], a.scale_log2, -ms[e / 2]));
       sum[e / 2] += sc[4 * j + e];
     }
 #pragma unroll
@@ -486,7 +466,7 @@ __device__ __forceinline__ void rescale_and_split(
   for (int kk = 0; kk < Tile<D>::BN / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
+      hopper::split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
                  pl[kk][r]);
 }
 
@@ -637,28 +617,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// Raises a kernel's dynamic shared-memory limit once per device (`ready` is
-// the calling launcher's own flag set).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool (&ready)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && ready[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < kMaxDevices) ready[dev] = true;
-  return err;
-}
-
 template <int D>
 int launch_wgmma(const Args& a, int B, int KV, cudaStream_t stream) {
   using T = Tile<D>;
-  static bool ready[kMaxDevices] = {};
-  cudaError_t err = allow_smem(flash_attention_wgmma_kernel<D>, T::SMEM,
-                               ready);
+  static bool ready[hopper::kMaxDevices] = {};
+  cudaError_t err =
+      hopper::allow_smem(flash_attention_wgmma_kernel<D>, T::SMEM, ready);
   if (err != cudaSuccess) return (int)err;
   WArgs w{a.o, a.o_sb, a.o_ss, a.o_sh, a.H, a.G, a.Sq, a.Skv,
           a.causal, a.window, a.q_offset,
@@ -696,9 +660,9 @@ int launch_wgmma_d(const Args& a, int B, int KV, int D, cudaStream_t stream) {
 template <typename T, int D, int BQ>
 int launch(const Args& a, int B, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D, BQ>() * (int)sizeof(float);
-  static bool ready[kMaxDevices] = {};
-  cudaError_t err = allow_smem(flash_attention_kernel<T, D, BQ>, bytes,
-                               ready);
+  static bool ready[hopper::kMaxDevices] = {};
+  cudaError_t err =
+      hopper::allow_smem(flash_attention_kernel<T, D, BQ>, bytes, ready);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
   flash_attention_kernel<T, D, BQ><<<grid, (BQ / TR) * CG, bytes, stream>>>(

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
 // TMA tensor maps and loads, mbarriers, warpgroup register hand-off
-// (setmaxnreg), named barriers and wgmma with its shared-memory descriptors.
-// Device helpers are thin wrappers over one PTX instruction each; the host
-// helper encodes a tensor map through the driver entry point that the CUDA
-// runtime hands out, so a library that includes this header needs no -lcuda.
+// (setmaxnreg), named barriers, wgmma with its shared-memory descriptors,
+// the bf16 hi + lo split of a float32 operand and a one-instruction exp2.
+// Device helpers are thin wrappers over one PTX instruction each. The host
+// helpers raise a kernel's shared-memory limit once per device and encode a
+// tensor map through the driver entry point that the CUDA runtime hands
+// out, so a library that includes this header needs no -lcuda.
 //
 // Shared-memory layouts follow TMA's swizzle modes: a tile of R rows whose
 // row holds CB bf16 elements (CB = 64 with 128-byte swizzle, CB = 32 with
@@ -13,6 +15,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -106,6 +109,27 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 2^x in one MUFU instruction; results below 2^-126 flush to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x, y) -> packed bf16 pairs hi = bf16(x, y) and lo = bf16(x - hi, y - hi):
+// a float32 operand of wgmma as two bf16 terms (16 significant bits).
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -325,6 +349,22 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128],
 }
 
 // ------------------------------------------------------------------ host --
+
+constexpr int kMaxDevices = 64;
+
+// Raises a kernel's dynamic shared-memory limit once per device (`ready` is
+// the calling launcher's own flag set), so no launch pays a driver call.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&ready)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && ready[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) ready[dev] = true;
+  return err;
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,

@@ -19,8 +19,8 @@ bfloat16, head_dim 32/64/128/256, read in place through strides in either
 layout) or raises; a CPU tensor takes :func:`flash_attention_ref` (or
 :func:`flash_attention_bshd_ref`). A failed
 build or launch is never swapped for the plain version. Inside the CUDA
-source, bfloat16 with 16-byte aligned rows (every contiguous layout) runs
-the Hopper kernel: TMA loads into a shared-memory ring fed by a producer
+source, bfloat16 with 16-byte aligned rows (every contiguous layout; see
+:func:`tensor_core_route`) runs the Hopper kernel: TMA loads into a shared-memory ring fed by a producer
 warpgroup, two consumer warpgroups running both products on ``wgmma``
 (P·V float32-exact through a hi + lo bf16 split of P), helpers in
 ``csrc/hopper.cuh``; float32, and bfloat16 read through odd strides, run on
@@ -99,6 +99,26 @@ def _check(q, k, v, bshd):
     return B, H, KV, Sq, Skv, d, h_ax, s_ax
 
 
+def tensor_core_route(q, k, v, out) -> bool:
+    """Whether a call takes the bf16 ``wgmma`` kernel (TMA loads): bfloat16,
+    every pointer 16-byte aligned and every (batch, seq, head) stride a
+    multiple of 8 elements, in either layout. A stride of 0 on a dimension
+    of extent > 1 (an ``expand``ed K/V, e.g. one KV head broadcast to
+    several) goes to the CUDA-core kernel, which reads any stride, where
+    the tensor-map encoder may refuse it. Everything else runs on the CUDA
+    cores."""
+    if q.dtype != torch.bfloat16:
+        return False
+    for t in (q, k, v, out):
+        if t.data_ptr() % 16:
+            return False
+        for ax in range(3):
+            s = t.stride(ax)
+            if s % 8 or (s == 0 and t.shape[ax] > 1):
+                return False
+    return True
+
+
 def _launcher():
     """The kernel's ``extern "C"`` launcher, built and typed on first use."""
     from repro_torch.kernels.build import load
@@ -125,9 +145,7 @@ def _launch(q, k, v, causal, window, q_offset, dims):
     strides = []
     for t in (q, k, v, out):
         strides += [t.stride(0), t.stride(s_ax), t.stride(h_ax)]
-    tensor_cores = q.dtype == torch.bfloat16 and all(
-        t.data_ptr() % 16 == 0 for t in (q, k, v, out)) and all(
-        s % 8 == 0 for s in strides)
+    tensor_cores = tensor_core_route(q, k, v, out)
     fn = _launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -13,10 +13,15 @@ launches; whole scenarios with ledgers exactly equal and F1 within the
 port's bound of 5e-3 (PERF.md); ``flash_attention`` within the JAX sweep's
 max abs 2e-5 (float32) and 2e-2 (bfloat16) of its plain version, bitwise
 equal across launches and across the (B,S,H,d) and (B,H,S,d) layouts
-(including edge cases of the wgmma kernel's TMA path at every head dim); ``ssd_scan`` within the sweep's relative 3e-5
-(float32) / 5e-2 (bfloat16) and ``rglru_scan`` (float32 only) within its
-absolute 1e-4, both bitwise equal across launches; the reduced LMs' logits
-within 1e-5 relative."""
+(including edge cases of the wgmma kernel's TMA path at every head dim,
+and expanded K/V views, which take the CUDA-core kernel); ``ssd_scan``
+within the sweep's relative 3e-5 (float32) / 5e-2 (bfloat16) of its plain
+version, and on its bf16 tensor-core route also of the sequential oracle
+and of the plain stages (the chunk states within 1e-3: float32 both
+sides, the same bf16 hi + lo operands, another summation order and
+cumsum); ``rglru_scan`` (float32 only) within its absolute 1e-4; both
+scans bitwise equal across launches; the reduced LMs' logits within 1e-5
+relative."""
 import dataclasses
 
 import numpy as np
@@ -211,6 +216,90 @@ def test_ssd_kernel_reads_views_and_refuses_what_it_cannot_run(cuda):
         ss.ssd_scan(wide, dt[:1, :8, :1], A[:1], Bm[:1, :8], Cm[:1, :8])
     with pytest.raises(ValueError, match="chunk"):
         ss.ssd_scan(x, dt, A, Bm, Cm, chunk=2048)
+
+
+# The tensor-core route (bf16, P 64): every S and chunk below, with N, B, H
+# and the layout (views of one conv output, or contiguous) cycling so that
+# each of their 16 combinations occurs.
+SSD_TC_CASES = []
+for _i, (_S, _chunk) in enumerate((S, c) for S in (1, 63, 65, 255, 257, 777,
+                                                    2048)
+                                  for c in (64, 128, 256)):
+    SSD_TC_CASES.append((1 + 2 * (_i >> 1 & 1), _S, 1 + 4 * (_i >> 2 & 1),
+                         (64, 128)[_i & 1], _chunk, bool(_i >> 3 & 1)))
+# chunk states, tensor-core kernel against the plain stage (module doc)
+SSD_STATES_TOL = 1e-3
+
+
+def ssd_tc_inputs(B, S, H, N, views, seed, device):
+    """bf16 x (B,S,H,64), B and C (B,S,N) as in ``ssd_inputs``; with
+    ``views`` all three are strided views of one (B,S,64 H + 2 N) tensor,
+    as the model's conv output gives them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    P = 64
+    if views:
+        xbc = torch.randn((B, S, H * P + 2 * N), generator=g, device=device)
+        xbc[..., H * P:] *= 0.5
+        xbc = xbc.bfloat16()
+        x = xbc[..., :H * P].unflatten(-1, (H, P))
+        Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    else:
+        x = torch.randn((B, S, H, P), generator=g, device=device).bfloat16()
+        Bm, Cm = ((torch.randn((B, S, N), generator=g, device=device) * 0.5)
+                  .bfloat16() for _ in range(2))
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=device))
+    A = -torch.exp(torch.randn(H, generator=g, device=device) * 0.5)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("case", SSD_TC_CASES,
+                         ids=[str(c) for c in SSD_TC_CASES])
+def test_ssd_tensor_core_route(cuda, case):
+    """y and the final state against ``ssd_chunked``, the oracle and the
+    plain stages; the chunk states of kernel 1 against their plain stage;
+    two launches bitwise equal; one launch counted per call."""
+    B, S, H, N, chunk, views = case
+    args = ssd_tc_inputs(B, S, H, N, views, seed=S + chunk, device=cuda)
+    x, dt, A, Bm, Cm = args
+    assert x.is_contiguous() != views
+    assert ss.tensor_core_route(x, Bm, Cm, chunk)
+    before = ss.launches
+    y, st = ss.ssd_scan(*args, chunk=chunk)
+    y2, st2 = ss.ssd_scan(*args, chunk=chunk)
+    assert ss.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    assert y.dtype == st.dtype == torch.bfloat16
+    assert tuple(st.shape) == (B, H, 64, N)
+    tol = SSD_TOL["bfloat16"]
+    for want_y, want_st in (ss.ssd_chunked(*args, chunk),
+                            ss.ssd_reference(*args)):
+        assert rel_err(y, want_y) <= tol and rel_err(st, want_st) <= tol
+    cs, states = ss.chunk_states(*args, chunk=chunk)
+    assert ss.launches == before + 3
+    cs_p, states_p = ss.chunk_states_ref(x, dt, A, Bm, chunk, split=True)
+    assert rel_err(states, states_p) <= SSD_STATES_TOL
+    assert rel_err(cs, cs_p) <= SSD_STATES_TOL
+    h_prev, h = ss.state_pass_ref(cs_p, states_p)
+    assert rel_err(st, h) <= tol
+    assert rel_err(y, ss.chunk_scan_ref(x, dt, Bm, Cm, cs_p, h_prev,
+                                        split=True)) <= tol
+
+
+def test_flash_kernel_reads_expanded_kv(cuda):
+    """bf16 K/V as ``expand``ed views (one KV head broadcast to 4, stride
+    0) take the CUDA-core kernel and give what contiguous copies give
+    (the wgmma kernel), within the bf16 bound."""
+    q, k1, v1 = flash_inputs((2, 8, 1, 300, 300, 128, True, 0, 0,
+                              "bfloat16"), seed=11, device=cuda)
+    k, v = (t.expand(2, 300, 4, 128) for t in (k1, v1))
+    assert k.stride(2) == 0
+    assert not fa.tensor_core_route(q, k, v, q)
+    assert fa.tensor_core_route(q, k.contiguous(), v.contiguous(), q)
+    out = fa.flash_attention_bshd(q, k, v)
+    want = fa.flash_attention_bshd(q, k.contiguous(), v.contiguous())
+    assert float((out.float() - want.float()).abs().max()) <= \
+        FLASH_TOL["bfloat16"]
 
 
 @pytest.mark.parametrize("shape", RGLRU_SHAPES,

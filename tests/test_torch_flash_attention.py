@@ -133,3 +133,28 @@ def test_row_without_a_valid_key_is_the_documented_corner():
     # rows 11.. have no key in (q - 4, q] inside the 8 keys
     np.testing.assert_allclose(got[0, :, 11:], np.broadcast_to(
         v.mean(axis=2)[0, :, None], got[0, :, 11:].shape), atol=1e-6)
+
+
+def test_tensor_core_route_choices():
+    """The wrapper's choice of the bf16 wgmma kernel (TMA): bf16 with
+    16-byte aligned rows in either layout, and q/k/v as views of one fused
+    projection, take it; float32, misaligned rows and an ``expand``ed K/V
+    (stride 0 over KV heads) take the CUDA-core kernel."""
+    route = t_fa.tensor_core_route
+    bf = torch.bfloat16
+    q, k, v = (torch.zeros(s, dtype=bf) for s in ((2, 64, 8, 128),
+                                                   (2, 64, 4, 128),
+                                                   (2, 64, 4, 128)))
+    assert route(q, k, v, torch.empty_like(q))
+    assert route(*(t.transpose(1, 2) for t in (q, k, v, q)))   # (B,H,S,d)
+    fused = torch.zeros((2, 64, 16, 128), dtype=bf)
+    assert route(fused[:, :, :8], fused[:, :, 8:12], fused[:, :, 12:], q)
+    assert not route(*(t.float() for t in (q, k, v, q)))
+    wide = torch.zeros((2, 64, 4, 136), dtype=bf)
+    assert not route(q, wide[..., 1:129], v, q)
+    k1 = torch.zeros((2, 64, 1, 128), dtype=bf)
+    ke, ve = k1.expand(2, 64, 4, 128), k1.expand(2, 64, 4, 128)
+    assert ke.stride(2) == 0 and not route(q, ke, ve, q)
+    # a stride of 0 on an extent-1 dimension is harmless
+    k0 = k1[:1].as_strided((1, 64, 1, 128), (64 * 128, 128, 0, 1))
+    assert k0.stride(2) == 0 and route(q[:1], k0, k1[:1], q[:1])

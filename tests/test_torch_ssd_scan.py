@@ -10,7 +10,8 @@ Tolerances, relative to the largest |value| of y and of the state: the
 JAX sweep's 3e-5 (float32) and 5e-2 (bfloat16) where the two sides run
 different algorithms (chunked vs sequential, or the Pallas kernel's
 float32 intermediates vs ``ssd_chunked``'s rounded ones); 1e-5 (float32)
-where both run the same algorithm in another summation order."""
+where both run the same algorithm in another summation order. The
+staged version's hi + lo emulation is held to the bfloat16 bound."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,3 +164,118 @@ def test_strided_views_read_in_place():
     yc, sc = ss.ssd_scan(x.contiguous(), dt, A, Bm.contiguous(),
                          Cm.contiguous(), chunk=16)
     assert torch.equal(y, yc) and torch.equal(st, sc)
+
+
+@pytest.mark.parametrize("shape", SWEEP_SHAPES,
+                         ids=[str(s) for s in SWEEP_SHAPES])
+def test_staged_matches_the_pallas_kernel_and_the_oracle(shape):
+    """float32: the three plain stages in a row against the Pallas kernel
+    (interpret mode) and the oracle; bf16 inputs with the hi + lo
+    emulation against the oracle."""
+    B, S, H, P, N, chunk = shape
+    arrays = inputs(B, S, H, P, N, "float32", seed=S + H + 1)
+    yk, sk = j_pallas(*as_jax(arrays, "float32"), chunk=chunk,
+                      interpret=True)
+    args = as_torch(arrays, "float32")
+    y, st = ss.ssd_staged(*args, chunk)
+    assert y.dtype == st.dtype == torch.float32
+    assert tuple(y.shape) == (B, S, H, P) and tuple(st.shape) == (B, H, P, N)
+    yo, so = ss.ssd_reference(*args)
+    for want_y, want_st in ((yk, sk), (yo, so)):
+        assert rel(y, want_y) < SWEEP_TOL["float32"]
+        assert rel(st, want_st) < SWEEP_TOL["float32"]
+    bf = as_torch(inputs(B, S, H, P, N, "bfloat16", seed=S + H + 1),
+                  "bfloat16")
+    y, st = ss.ssd_staged(*bf, chunk, split=True)
+    assert y.dtype == st.dtype == torch.bfloat16
+    yo, so = ss.ssd_reference(*bf)
+    assert rel(y, yo) < SWEEP_TOL["bfloat16"]
+    assert rel(st, so) < SWEEP_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("S", [1, 63, 100, 257])
+def test_staged_pads_a_ragged_last_chunk(S, chunk):
+    """Any S: the last chunk is padded with x = B = C = 0 and dt = 0 and no
+    row past S comes back. float32 against the oracle, and the hi + lo
+    emulation (bf16 inputs) within the bfloat16 bound."""
+    arrays = inputs(2, S, 3, 64, 64, seed=S + chunk)
+    args = as_torch(arrays, "float32")
+    y, st = ss.ssd_staged(*args, chunk)
+    yo, so = ss.ssd_reference(*args)
+    assert tuple(y.shape) == (2, S, 3, 64)
+    assert rel(y, yo) < SWEEP_TOL["float32"]
+    assert rel(st, so) < SWEEP_TOL["float32"]
+    bf = as_torch(inputs(2, S, 3, 64, 64, "bfloat16", seed=S + chunk),
+                  "bfloat16")
+    y, st = ss.ssd_staged(*bf, chunk, split=True)
+    yo, so = ss.ssd_reference(*bf)
+    assert rel(y, yo) < SWEEP_TOL["bfloat16"]
+    assert rel(st, so) < SWEEP_TOL["bfloat16"]
+
+
+def test_stages_hand_on_what_the_kernels_hand_on():
+    """Kernel 1's plain stage gives the chunks' cumulative log decay
+    (B,nc,H,Q), constant over the padding, and their own states; kernel
+    2's gives 0 entering the first chunk and the final state; on the CPU
+    ``chunk_states`` is the plain stage with the hi + lo split."""
+    B, S, H, P, N, Q = 2, 150, 3, 64, 64, 64
+    x, dt, A, Bm, Cm = as_torch(inputs(B, S, H, P, N, "bfloat16", seed=9),
+                                "bfloat16")
+    cs, states = ss.chunk_states_ref(x, dt, A, Bm, Q)
+    assert tuple(cs.shape) == (B, 3, H, Q)
+    assert tuple(states.shape) == (B, 3, H, P, N)
+    ragged = cs[:, -1, :, S - 2 * Q - 1:]                  # rows 21.. of 64
+    assert torch.equal(ragged, ragged[..., :1].expand_as(ragged))
+    assert bool((cs[..., 1:] <= cs[..., :-1]).all())     # dt A <= 0
+    h_prev, h = ss.state_pass_ref(cs, states)
+    assert not h_prev[:, 0].any()
+    assert torch.allclose(h_prev[:, 1], states[:, 0])
+    _, so = ss.ssd_reference(x, dt, A, Bm, Cm)
+    assert rel(h, so) < SWEEP_TOL["bfloat16"]
+    before = ss.launches
+    cs_s, states_s = ss.chunk_states(x, dt, A, Bm, Cm, chunk=Q)
+    cs_r, states_r = ss.chunk_states_ref(x, dt, A, Bm, Q, split=True)
+    assert torch.equal(cs_s, cs_r) and torch.equal(states_s, states_r)
+    assert ss.launches == before
+
+
+def _views(B, S, H, N, extra=0, dtype=torch.bfloat16):
+    """x (B,S,H,64), B and C (B,S,N) as views of one conv output of width
+    64 H + 2 N + extra, the model's layout."""
+    xbc = torch.zeros((B, S, 64 * H + 2 * N + extra), dtype=dtype)
+    return (xbc[..., :64 * H].unflatten(-1, (H, 64)),
+            xbc[..., 64 * H:64 * H + N], xbc[..., 64 * H + N:64 * H + 2 * N])
+
+
+def test_tensor_core_route_choices():
+    """mamba2-1.3b's prefill (P 64, N 128, chunk 256, views of the conv
+    output with row stride 4352) and contiguous bf16 take the tensor
+    cores; float32, P 32 or 128, N 16 or 32, a chunk of 32 or past 256,
+    misaligned rows and a stride of 0 take the CUDA cores."""
+    route = ss.tensor_core_route
+    x, Bm, Cm = _views(2, 300, 64, 128)
+    assert x.stride(1) == 4352 and route(x, Bm, Cm, 256)
+    for chunk in (64, 128, 192):
+        assert route(x, Bm, Cm, chunk)
+    for chunk in (32, 100, 320, 512):
+        assert not route(x, Bm, Cm, chunk)
+    xc, Bc, Cc = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    assert route(xc, Bc, Cc, 256)
+    assert route(*_views(1, 5, 2, 64), 64)
+    assert not route(*_views(2, 300, 4, 128, dtype=torch.float32), 256)
+    bf = torch.bfloat16
+    for P in (32, 128):
+        assert not route(torch.zeros((1, 8, 2, P), dtype=bf), Bc[:1, :8],
+                         Cc[:1, :8], 256)
+    for N in (16, 32):
+        assert not route(*_views(1, 8, 2, N), 256)
+    # row stride 64 H + 2 N + 4: not a multiple of 8 elements
+    assert not route(*_views(1, 8, 2, 128, extra=4), 256)
+    # every row starts one element (2 bytes) past a 16-byte boundary
+    wide = torch.zeros((1, 8, 2, 72), dtype=bf)
+    assert not route(wide[..., 1:65], Bc[:1, :8], Cc[:1, :8], 256)
+    # one head's x broadcast to 4 heads: head stride 0
+    one = torch.zeros((1, 8, 1, 64), dtype=bf).expand(1, 8, 4, 64)
+    assert one.stride(2) == 0 and not route(one, Bc[:1, :8], Cc[:1, :8], 64)
+    assert route(one.contiguous(), Bc[:1, :8], Cc[:1, :8], 64)
