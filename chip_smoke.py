@@ -14,11 +14,18 @@ failure raises and the script exits non-zero without printing a result:
    ``nvcc`` per source, all started together; then a ``{"ptxas": ...}``
    line with the registers and spill bytes of every kernel function, and a
    check that no instantiation of the bf16 tensor-core flash kernel (head
-   dims 32, 64, 128, 256) or of the three tensor-core ``ssd_scan`` kernels
-   (N 64, 128) spills;
+   dims 32, 64, 128, 256), of the three tensor-core ``ssd_scan`` kernels
+   (N 64, 128) or of the ``loo_trials`` kernel (D buckets 16-128, plain
+   and fused) spills;
 3. kernel — ``loo_trials`` against its plain PyTorch version on the card at
    every main-path shape (rtol 1e-5, atol floor 1e-5), two launches
-   bitwise equal, and CUDA-event times of kernel, plain version and bound;
+   bitwise equal, and CUDA-event times of kernel, plain version and bound,
+   beside the first kernel's time (``earlier_us``) and the time of the
+   most trivial launch (``floor_us``);
+3b. loo_trials_step — the greedy step's fused kernel (prologue + scorer,
+   the refine's main path) against ``loo_trials_step_ref`` at the same
+   shapes: objs, dinv and zj within the same tolerance, bitwise equal
+   across launches, with times;
 4. flash — ``flash_attention`` against its plain version at every shape
    the serve phases give it (llama3.2-3b: H 24, KV 8, d 128, causal;
    recurrentgemma-9b: H 16, KV 1, d 256, window 2048; bfloat16, B 4 x
@@ -44,7 +51,9 @@ failure raises and the script exits non-zero without printing a result:
 8. paper — the 32-label ``paper_tables`` grid at the paper's data size
    (30 windows, 1 seed, fleet engine, stacked) against
    ``results/benchmarks/paper_tables.json``; the main-path run whose
-   ``loo_trials`` launches are counted;
+   ``loo_trials`` launches are counted (``loo_trials_launches`` counts both
+   entry points, one per greedy step; ``loo_trials_step_launches`` the
+   fused one, which the incremental refine calls);
 9.-11. serve — llama3.2-3b, mamba2-1.3b and recurrentgemma-9b, one at a
    time, each at full width and depth in bfloat16 (weights from the port's
    seeded initialiser) and freed before the next loads:
@@ -62,7 +71,9 @@ failure raises and the script exits non-zero without printing a result:
    float32, the port on the card against the port on the CPU with the
    same weights.
 
-Then the whole script's seconds, the ``{"kernels": [...]}`` line and,
+Then the whole script's seconds, the ``{"kernels": [...]}`` line (the
+four ported kernels, and the fused step as a fifth line of the
+``loo_trials`` source) and,
 last, the ``{"ok": true, ...}`` line. Imports neither JAX nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -94,6 +105,13 @@ KERNEL_SHAPES = [(L, R, D, 16) for L in (1, 8, 16, 32)
                  for R in (1, 112, 448, 1120) for D in (11, 23)]
 HEADLINE_SHAPE = (16, 1120, 23, 16)
 TIMING_REPS = 60
+# Each KERNEL_SHAPES row's time (us) under the first loo_trials kernel (one
+# block per DC, rows read straight from device memory), before the
+# cluster redesign (PERF.md §6; chip_smoke on an H100 80GB HBM3, 700 W).
+LOO_EARLIER_US = [7.74, 8.53, 9.92, 11.39, 14.72, 17.57, 28.1, 34.59, 9.47,
+                  10.37, 9.98, 11.49, 14.88, 17.6, 28.16, 34.78, 9.57, 10.34,
+                  9.95, 11.49, 14.94, 17.63, 28.22, 34.94, 9.6, 10.34, 10.05,
+                  11.62, 15.04, 17.86, 28.51, 35.41]
 
 # flash_attention: the JAX sweep's bounds (tests/test_kernels.py:15)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -196,8 +214,13 @@ SSD_EARLIER_US = [3180.8, 35.9, 117.7, 190.3, 378.5, 588.4, 742.9, 1113.8,
 DEVICE_KERNELS = {"ssd_scan": ("ssd_scan_kernel", "ssd_chunk_state_kernel",
                                "ssd_state_pass_kernel",
                                "ssd_chunk_scan_kernel")}
+# The loo_trials kernel's instantiations (D bucket, fused prologue); none
+# may spill.
+LOO_KERNELS = tuple(f"loo_trials_kernel<{d},{s}>" for d in (16, 32, 64, 128)
+                    for s in (0, 1))
 # The TPU kernel (Pallas body, file:line) each CUDA kernel replaces.
 REPLACES = {"loo_trials": "src/repro/kernels/loo_trials.py:51",
+            "loo_trials_step": "src/repro/kernels/loo_trials.py:51",
             "flash_attention": "src/repro/kernels/flash_attention.py:25",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:22",
             "rglru_scan": "src/repro/kernels/rglru_scan.py:21"}
@@ -220,12 +243,11 @@ def nvidia_smi_line() -> str:
     return out[0]
 
 
-def kernel_inputs(L, R, D, M, seed, device):
-    """The kernel's arguments in the state of the first greedy step of
-    the incremental refine (bias-only factor, ``D - 7`` empty slots), from
-    a random ridge system: realistic magnitudes (leverage below 1). The
-    last DC of a fleet is a padding DC (all-zero rows and rmask) and every
-    fifth candidate is masked (dinv = 0)."""
+def first_step(L, R, D, M, seed):
+    """The incremental refine's carries at its first greedy step (bias-only
+    factor in the first 7 of D slots), from a random ridge system:
+    realistic magnitudes (leverage below 1). The last DC of a fleet is a
+    padding DC (all-zero rows and rmask). A dict of CPU tensors."""
     C = 7
     g = torch.Generator().manual_seed(seed)
     A = torch.randn((L, R, M + C), generator=g)
@@ -246,15 +268,44 @@ def kernel_inputs(L, R, D, M, seed, device):
     ut[:, :, :C] = Utb
     cc = torch.zeros((L, D, M))
     cc[:, :C] = Ccb
-    fitted = (Utb @ zb)[:, :, 0]
-    h = torch.sum(Utb ** 2, dim=-1)
-    dsq = (torch.diagonal(AtA, dim1=1, dim2=2)[:, :M] + lam_d[:M]
-           - torch.sum(cc ** 2, dim=1))
+    z = torch.zeros((L, D))
+    z[:, :C] = zb[:, :, 0]
+    return {"ut": ut, "cc": cc, "a_cand": A_rm[:, :, :M],
+            "fitted": (Utb @ zb)[:, :, 0], "h": torch.sum(Utb ** 2, dim=-1),
+            "y": y, "rmask": rmask,
+            "diag_g": torch.diagonal(AtA, dim1=1, dim2=2)[:, :M] + lam_d[:M],
+            "aty_m": Aty[:, :M], "z": z}
+
+
+def _on(device, args):
+    return tuple(a.contiguous().to(device) for a in args)
+
+
+def kernel_inputs(L, R, D, M, seed, device):
+    """``loo_trials``' arguments at the first greedy step (:func:`first_step`)
+    with every fifth candidate masked (dinv = 0)."""
+    s = first_step(L, R, D, M, seed)
+    dsq = s["diag_g"] - torch.sum(s["cc"] ** 2, dim=1)
     dinv = torch.rsqrt(torch.clamp(dsq, min=1e-8))
     dinv[:, ::5] = 0.0
-    zj = (Aty[:, :M] - (cc[:, :C].transpose(1, 2) @ zb)[:, :, 0]) * dinv
-    args = (ut, cc, A_rm[:, :, :M], fitted, h, y, rmask, zj, dinv)
-    return tuple(a.contiguous().to(device) for a in args)
+    zj = (s["aty_m"] - (s["cc"].transpose(1, 2) @ s["z"][:, :, None])
+          [:, :, 0]) * dinv
+    return _on(device, (s["ut"], s["cc"], s["a_cand"], s["fitted"], s["h"],
+                        s["y"], s["rmask"], zj, dinv))
+
+
+def step_inputs(L, R, D, M, seed, device):
+    """``loo_trials_step``'s arguments at the first greedy step
+    (:func:`first_step`): every fifth candidate already selected (dinv =
+    0), and every tenth source masked out (selected but not active)."""
+    s = first_step(L, R, D, M, seed)
+    sel = torch.zeros((L, M))
+    sel[:, ::5] = 1.0
+    src_mask = torch.ones((L, M))
+    src_mask[:, ::10] = 0.0
+    return _on(device, (s["ut"], s["cc"], s["a_cand"], s["fitted"], s["h"],
+                        s["y"], s["rmask"], s["diag_g"], s["aty_m"], s["z"],
+                        sel, src_mask))
 
 
 def kernel_cost(L, R, D, M):
@@ -263,6 +314,15 @@ def kernel_cost(L, R, D, M):
     (row, candidate) for the epilogue and the row sum."""
     floats = L * (R * D + D * M + R * M + 4 * R + 2 * M) + L * M
     return 4 * floats, L * (2 * R * D * M + 13 * R * M)
+
+
+def step_cost(L, R, D, M):
+    """(bytes, flops) of the fused step: the scorer's inputs less zj and
+    dinv, plus diag_g, aty_m, sel, src_mask and z read once, objs, dinv and
+    zj written once; the scorer's operations plus 4·D·M for cc's squares
+    and ccᵀz and 7 per candidate for dinv and zj."""
+    floats = L * (R * D + D * M + R * M + 4 * R + 4 * M + D) + 3 * L * M
+    return 4 * floats, L * (2 * R * D * M + 13 * R * M + 4 * D * M + 7 * M)
 
 
 def device_time_us(fn, args, reps=TIMING_REPS) -> float:
@@ -294,9 +354,16 @@ def bound(nbytes, flops, dtype):
                                  else "operations")
 
 
+def floor_us() -> float:
+    """The device time of the most trivial launch (a one-cycle sleep
+    kernel), timed as every kernel here is: the floor under any row."""
+    return device_time_us(lambda: torch.cuda._sleep(1), ())
+
+
 def phase_kernel(loo):
     t0 = time.perf_counter()
     rows, worst = [], 0.0
+    floor = floor_us()
     for i, (L, R, D, M) in enumerate(KERNEL_SHAPES):
         args = kernel_inputs(L, R, D, M, seed=i, device="cuda")
         out = loo.loo_trials(*args)
@@ -313,11 +380,48 @@ def phase_kernel(loo):
         worst = max(worst, err)
         bound_us, bound_by = bound(*kernel_cost(L, R, D, M), "float32")
         rows.append({"L": L, "R": R, "D": D, "M": M, "max_abs_err": err,
+                     "cluster": loo.launch_plan(L, R, D, M).cluster,
                      "kernel_us": device_time_us(loo.loo_trials, args),
+                     "earlier_us": LOO_EARLIER_US[i],
                      "plain_us": device_time_us(loo.loo_trials_ref, args),
                      "bound_us": bound_us, "bound_by": bound_by})
     emit({"phase": "kernel", "kernel": "loo_trials", "rtol": KERNEL_RTOL,
-          "atol": KERNEL_ATOL, "max_abs_err": worst,
+          "atol": KERNEL_ATOL, "max_abs_err": worst, "floor_us": floor,
+          "seconds": time.perf_counter() - t0, "shapes": rows})
+    return rows, worst
+
+
+def phase_step(loo):
+    """The fused greedy step against its plain version at every
+    KERNEL_SHAPES row: objs, dinv and zj within the kernel tolerance, two
+    launches bitwise equal, and times of kernel, plain version and bound."""
+    t0 = time.perf_counter()
+    rows, worst = [], 0.0
+    for i, (L, R, D, M) in enumerate(KERNEL_SHAPES):
+        args = step_inputs(L, R, D, M, seed=400 + i, device="cuda")
+        out = loo.loo_trials_step(*args)
+        out2 = loo.loo_trials_step(*args)
+        ref = loo.loo_trials_step_ref(*args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, a, b, c in zip(("objs", "dinv", "zj"), out, out2, ref):
+            check(torch.equal(a, b), f"loo_trials_step {name} not bitwise "
+                                     f"deterministic at {(L, R, D, M)}")
+            check(bool(torch.isfinite(a).all()),
+                  f"loo_trials_step {name} non-finite at {(L, R, D, M)}")
+            check(torch.allclose(a, c, rtol=KERNEL_RTOL, atol=KERNEL_ATOL),
+                  f"loo_trials_step {name} vs plain at {(L, R, D, M)}: max "
+                  f"abs err {float((a - c).abs().max())}")
+            err = max(err, float((a - c).abs().max()))
+        worst = max(worst, err)
+        bound_us, bound_by = bound(*step_cost(L, R, D, M), "float32")
+        rows.append({"L": L, "R": R, "D": D, "M": M, "max_abs_err": err,
+                     "kernel_us": device_time_us(loo.loo_trials_step, args),
+                     "plain_us": device_time_us(loo.loo_trials_step_ref,
+                                                args),
+                     "bound_us": bound_us, "bound_by": bound_by})
+    emit({"phase": "loo_trials_step", "kernel": "loo_trials_step",
+          "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "max_abs_err": worst,
           "seconds": time.perf_counter() - t0, "shapes": rows})
     return rows, worst
 
@@ -860,7 +964,7 @@ def phase_preset(name, overrides, golden, labels, loo, fleet, data):
         res = get_preset(name, **overrides).run(data, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = loo.launches
+    launches, step_launches = loo.launches, loo.step_launches
     got = summaries(res)
     check(res.labels() == labels, f"{name}: labels {res.labels()}")
     for lbl in labels:
@@ -872,12 +976,14 @@ def phase_preset(name, overrides, golden, labels, loo, fleet, data):
            "wall_s": wall, "s_per_window": wall / overrides["windows"],
            "energy_max_rel_err": e, "f1_max_abs_err": f,
            "f1_curve_max_abs_err": c, "f1_atol": F1_ATOL,
-           "loo_trials_launches": launches, **tally.as_dict()}
+           "loo_trials_launches": launches,
+           "loo_trials_step_launches": step_launches, **tally.as_dict()}
     emit(out)
     check(e <= ENERGY_RTOL, f"{name}: energy rel err {e} > {ENERGY_RTOL}")
     check(f <= F1_ATOL, f"{name}: converged F1 err {f} > {F1_ATOL}")
     check(c <= F1_ATOL, f"{name}: F1 curve err {c} > {F1_ATOL}")
     check(launches > 0, f"{name}: loo_trials kernel never launched")
+    check(step_launches > 0, f"{name}: the fused greedy step never launched")
     return out
 
 
@@ -921,14 +1027,17 @@ def main() -> int:
         check(rep is not None, f"no ptxas report for {FLASH_TC_KERNEL}<{d}>")
         check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
               f"{FLASH_TC_KERNEL}<{d}> spills: {rep}")
-    for name in SSD_TC_KERNELS:
-        rep = ptxas["ssd_scan"].get(name)
-        check(rep is not None, f"no ptxas report for {name}")
-        check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
-              f"{name} spills: {rep}")
+    for lib, names in (("ssd_scan", SSD_TC_KERNELS),
+                       ("loo_trials", LOO_KERNELS)):
+        for name in names:
+            rep = ptxas[lib].get(name)
+            check(rep is not None, f"no ptxas report for {name}")
+            check(rep.get("spill_stores") == 0
+                  and rep.get("spill_loads") == 0, f"{name} spills: {rep}")
 
     # 3.-6. every kernel against its plain version
     rows, worst = phase_kernel(loo)
+    step_rows, step_worst = phase_step(loo)
     flash_rows, flash_worst = phase_flash(fa)
     ssd_rows, ssd_worst = phase_ssd(ss)
     rglru_rows, rglru_worst = phase_rglru(rg)
@@ -969,9 +1078,10 @@ def main() -> int:
     def served_launches(name):
         return sum(out["launches"].get(name, 0) for out in served.values())
 
-    def line(name, head, err, launches, library_us=None):
+    def line(name, head, err, launches, library_us=None, source=None):
         return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "source": "src/repro_torch/kernels/csrc/"
+                          f"{source or name}.cu",
                 "replaces": REPLACES[name], "launches": launches,
                 "max_abs_err": err, "ms": head["kernel_us"] / 1e3,
                 "plain_ms": head["plain_us"] / 1e3,
@@ -981,9 +1091,13 @@ def main() -> int:
                 else library_us / 1e3, "shape": head["shape"]}
 
     head["shape"] = list(HEADLINE_SHAPE)
+    step_head = step_rows[KERNEL_SHAPES.index(HEADLINE_SHAPE)]
+    step_head["shape"] = list(HEADLINE_SHAPE)
     fhead = flash_rows[0]
     emit({"kernels": [
         line("loo_trials", head, worst, main_run["loo_trials_launches"]),
+        line("loo_trials_step", step_head, step_worst,
+             main_run["loo_trials_step_launches"], source="loo_trials"),
         line("flash_attention", fhead, flash_worst,
              served_launches("flash_attention"), fhead["library_us"]),
         line("ssd_scan", ssd_rows[0],

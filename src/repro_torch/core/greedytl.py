@@ -143,7 +143,9 @@ def _greedy_select_incremental(AtA, Aty, A_rm, yr, rmask, src_mask, lam_d, *,
 
     Every DC still improving has accepted at every earlier step, so the
     append slot C + k is the same for all of them; DCs that stopped keep
-    their carries. Returns (sel (L,M), best (L,))."""
+    their carries. Each step's prologue (the candidates' ``dinv`` and
+    ``zj`` from the carries) runs inside the same kernel launch as the
+    trial sweep (``loo_trials_step``). Returns (sel (L,M), best (L,))."""
     Lb, R, _ = A_rm.shape
     Kmax = min(k_max, M)
     Dk = C + Kmax
@@ -166,18 +168,19 @@ def _greedy_select_incremental(AtA, Aty, A_rm, yr, rmask, src_mask, lam_d, *,
     best = torch.sum((resid0 / torch.clamp(1.0 - h, min=0.1)) ** 2, dim=-1)
     diagG = torch.diagonal(AtA, dim1=1, dim2=2)[:, :M] + lam_d[:M]
     a_cand = A_rm[:, :, :M].contiguous()
-    sel = torch.zeros_like(src_mask)
+    aty_m = Aty[:, :M].contiguous()
+    src = src_mask.contiguous()
+    sel = torch.zeros_like(src)
     done = torch.zeros(Lb, dtype=torch.bool, device=dev)
     ar = torch.arange(Lb, device=dev)
 
     for k in range(Kmax):
-        active = sel * src_mask
-        dsq = diagG - torch.sum(Cc ** 2, dim=1)
-        dinv = torch.rsqrt(torch.clamp(dsq, min=1e-8)) * (1.0 - active)
-        zj = (Aty[:, :M] - _matvec_t(Cc, z)) * dinv
-        objs = kernel.loo_trials(Ut, Cc, a_cand, fitted, h, yr, rmask, zj,
-                                 dinv)
-        j, obj_j, improved = _pick_best(objs, sel, src_mask, best, done)
+        # the step's prologue (dinv, zj from the carries) and the trial
+        # sweep, in one kernel launch
+        objs, dinv, zj = kernel.loo_trials_step(Ut, Cc, a_cand, fitted, h,
+                                                yr, rmask, diagG, aty_m, z,
+                                                sel, src)
+        j, obj_j, improved = _pick_best(objs, sel, src, best, done)
         # border append at slot C + k (see docstring)
         slot = C + k
         cj = Cc[ar, :, j]                                        # (L, Dk)

@@ -91,13 +91,14 @@ def load(name: str) -> ctypes.CDLL:
 def kernel_label(symbol: str) -> str:
     """A readable name for a mangled kernel symbol of this repo:
     ``flash_attention_wgmma_kernel<128>``, ``flash_attention_kernel<bf16,
-    32,64>``; any other symbol is returned as it is."""
-    m = re.search(r"\d+([A-Za-z_]*kernel)(I(?:Li\d+E|f|13__nv_bfloat16)+E)?",
-                  symbol)
+    32,64>``, ``loo_trials_kernel<32,1>`` (a bool argument reads 0 or 1);
+    any other symbol is returned as it is."""
+    m = re.search(r"\d+([A-Za-z_]*kernel)"
+                  r"(I(?:Li\d+E|Lb[01]E|f|13__nv_bfloat16)+E)?", symbol)
     if m is None:
         return symbol
     args = ["f32" if t == "f" else "bf16" if t.startswith("13") else t[2:-1]
-            for t in re.findall(r"Li\d+E|13__nv_bfloat16|f",
+            for t in re.findall(r"Li\d+E|Lb[01]E|13__nv_bfloat16|f",
                                 (m.group(2) or "")[1:-1])]
     return f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
 

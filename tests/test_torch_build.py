@@ -77,3 +77,20 @@ def test_ptxas_report_gives_registers_and_spills_per_kernel():
             "spill_stores": 0, "spill_loads": 0, "registers": 71},
         "loo_trials_kernel": {
             "spill_stores": 0, "spill_loads": 0, "registers": 40}}
+
+
+def test_kernel_label_reads_bool_template_arguments():
+    """The loo_trials kernel is instantiated per D bucket and per entry
+    (plain or fused): each instantiation keeps its own ptxas row."""
+    symbol = ("_ZN46_GLOBAL__N__0badc0de_13_loo_trials_cu_12345678"
+              "17loo_trials_kernelILi32ELb1EEEvNS_4ArgsE")
+    assert build.kernel_label(symbol) == "loo_trials_kernel<32,1>"
+    log = PTXAS_LOG + "\n".join(
+        f"ptxas info    : Function properties for {symbol.replace(a, b)}\n"
+        f"    0 bytes stack frame, {s} bytes spill stores, 0 bytes spill "
+        f"loads\nptxas info    : Used {r} registers"
+        for a, b, s, r in (("Li32ELb1", "Li32ELb1", 0, 128),
+                           ("Li32ELb1", "Li16ELb0", 8, 127)))
+    rep = build.ptxas_report(log)
+    assert rep["loo_trials_kernel<32,1>"]["registers"] == 128
+    assert rep["loo_trials_kernel<16,0>"]["spill_stores"] == 8

@@ -7,14 +7,15 @@ JAX nor ``repro``, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: ``loo_trials`` within rtol 1e-5 and an atol floor of 1e-5 of
-the plain version (float32, other summation order), bitwise equal across
-launches; whole scenarios with ledgers exactly equal and F1 within the
+Tolerances: ``loo_trials`` and the fused ``loo_trials_step`` (objs, dinv,
+zj) within rtol 1e-5 and an atol floor of 1e-5 of the plain version
+(float32, other summation order), bitwise equal across launches; whole scenarios with ledgers exactly equal and F1 within the
 port's bound of 5e-3 (PERF.md); ``flash_attention`` within the JAX sweep's
 max abs 2e-5 (float32) and 2e-2 (bfloat16) of its plain version, bitwise
 equal across launches and across the (B,S,H,d) and (B,H,S,d) layouts
 (including edge cases of the wgmma kernel's TMA path at every head dim,
-and expanded K/V views, which take the CUDA-core kernel); ``ssd_scan``
+expanded K/V views, which take the CUDA-core kernel, and overlapping K/V
+views, within 2e-2 of contiguous copies); ``ssd_scan``
 within the sweep's relative 3e-5 (float32) / 5e-2 (bfloat16) of its plain
 version, and on its bf16 tensor-core route also of the sequential oracle
 and of the plain stages (the chunk states within 1e-3: float32 both
@@ -32,7 +33,7 @@ from chip_smoke import (FLASH_EXTRA, FLASH_TOL, KERNEL_SHAPES, REDUCED,
                         REDUCED_LOGIT_RTOL, RGLRU_SHAPES, RGLRU_TOL,
                         SSD_SHAPES, SSD_TOL, flash_inputs, flash_kwargs,
                         kernel_inputs, reduced_card_vs_cpu, rel_err,
-                        rglru_inputs, ssd_inputs)
+                        rglru_inputs, ssd_inputs, step_inputs)
 from repro_torch.core import scenario
 from repro_torch.data.synthetic_covtype import make_covtype_like
 from repro_torch.kernels import flash_attention as fa
@@ -60,6 +61,50 @@ def test_kernel_matches_plain_version(cuda):
         torch.testing.assert_close(out, loo.loo_trials_ref(*args),
                                    rtol=1e-5, atol=1e-5)
         assert torch.equal(out, again)
+
+
+# Edge shapes of the cluster kernel, (L, R, D, M): R = 1, R that the 64-row
+# tile does not divide, several candidate tiles (M 17, 64, 128), the
+# largest D bucket, L = 64 (cluster of 2), and long rows (cluster of 8 with
+# many tiles each); every multi-DC row ends in a padding DC, and every
+# fifth candidate is masked (``kernel_inputs``).
+LOO_EDGE_SHAPES = [(1, 1, 23, 16), (4, 1, 11, 16), (3, 100, 23, 16),
+                   (2, 1000, 11, 17), (5, 300, 23, 64), (2, 129, 23, 128),
+                   (3, 200, 128, 16), (2, 70, 128, 128), (64, 112, 23, 16),
+                   (64, 1120, 23, 16), (1, 5000, 40, 16), (9, 65, 23, 33)]
+
+
+@pytest.mark.parametrize("shape", LOO_EDGE_SHAPES,
+                         ids=[str(s) for s in LOO_EDGE_SHAPES])
+def test_kernel_edge_shapes_match_plain_version(cuda, shape):
+    L, R, D, M = shape
+    args = kernel_inputs(L, R, D, M, seed=sum(shape), device=cuda)
+    out = loo.loo_trials(*args)
+    again = loo.loo_trials(*args)
+    torch.testing.assert_close(out, loo.loo_trials_ref(*args), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(out, again)
+    if L > 1:
+        assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+
+
+@pytest.mark.parametrize("shape", KERNEL_SHAPES + LOO_EDGE_SHAPES,
+                         ids=[str(s) for s in KERNEL_SHAPES + LOO_EDGE_SHAPES])
+def test_step_kernel_matches_plain_version(cuda, shape):
+    """The fused step (prologue + scorer) against its plain version: objs,
+    dinv and zj within rtol 1e-5 / atol 1e-5, bitwise equal across two
+    launches, one launch counted per call."""
+    L, R, D, M = shape
+    args = step_inputs(L, R, D, M, seed=7 + sum(shape), device=cuda)
+    before, before_step = loo.launches, loo.step_launches
+    out = loo.loo_trials_step(*args)
+    again = loo.loo_trials_step(*args)
+    assert loo.launches == before + 2
+    assert loo.step_launches == before_step + 2
+    for got, twice, want in zip(out, again, loo.loo_trials_step_ref(*args)):
+        assert got.shape == (L, M)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, twice)
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_run(cuda):
@@ -300,6 +345,28 @@ def test_flash_kernel_reads_expanded_kv(cuda):
     want = fa.flash_attention_bshd(q, k.contiguous(), v.contiguous())
     assert float((out.float() - want.float()).abs().max()) <= \
         FLASH_TOL["bfloat16"]
+
+
+def test_flash_kernel_reads_overlapping_kv(cuda):
+    """bf16 K/V as ``as_strided`` views whose rows overlap (sequence stride
+    d, head stride 2 d, so the sequence stride is smaller than the head
+    stride times KV and k[:, s, h] is k[:, s + 2, h - 1]) give what
+    ``.contiguous()`` copies give, within the bf16 bound."""
+    B, H, KV, S, d = 2, 8, 4, 300, 128
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn((B, S, H, d), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((B, S + 2 * KV, d), generator=g, device=cuda)
+            .bfloat16().as_strided((B, S, KV, d), ((S + 2 * KV) * d, d,
+                                                   2 * d, 1))
+            for _ in range(2))
+    assert k.stride(1) < k.stride(2) * KV and not k.is_contiguous()
+    assert torch.equal(k[:, 2, 0], k[:, 0, 1])
+    out = fa.flash_attention_bshd(q, k, v)
+    want = fa.flash_attention_bshd(q, k.contiguous(), v.contiguous())
+    assert float((out.float() - want.float()).abs().max()) <= \
+        FLASH_TOL["bfloat16"]
+    assert float((out.float() - fa.flash_attention_bshd_ref(q, k, v).float())
+                 .abs().max()) <= FLASH_TOL["bfloat16"]
 
 
 @pytest.mark.parametrize("shape", RGLRU_SHAPES,
