@@ -18,7 +18,9 @@ failure raises and the script exits non-zero without printing a result:
    (N 64, 128) or of the ``loo_trials`` kernel (D buckets 16-128, plain
    and fused) spills;
 3. kernel — ``loo_trials`` against its plain PyTorch version on the card at
-   every main-path shape (rtol 1e-5, atol floor 1e-5), two launches
+   every main-path shape (a grid of L, R and D, and the shapes beyond it
+   that phases 7-8d launch, the city's refine among them; rtol 1e-5, atol
+   floor 1e-5), two launches
    bitwise equal, and CUDA-event times of kernel, plain version and bound,
    beside the first kernel's time (``earlier_us``) and the time of the
    most trivial launch (``floor_us``);
@@ -54,6 +56,40 @@ failure raises and the script exits non-zero without printing a result:
    ``loo_trials`` launches are counted (``loo_trials_launches`` counts both
    entry points, one per greedy step; ``loo_trials_step_launches`` the
    fused one, which the incremental refine calls);
+8b. scan_parity — the ``smoke`` preset (the golden file's windows and
+   seeds) and ``transport_grid`` at 5 windows on the scan engine
+   (``engine="scan"``: one captured CUDA graph per block shape, one replay
+   per window) and on the fleet engine, both unstacked: every ledger event
+   equal, every F1 within 1e-4 (the reference's fleet-vs-loop bar), one
+   ``scan_windows`` dispatch per scenario; prints how many F1 values differ
+   and whether the ``SweepResult`` JSON, engine field normalised, is
+   byte-equal (the reference's own gate, ``scripts/scan_parity.py``);
+8c. paper_tables_scan — the 31 HTL labels of the paper grid (all but
+   ``fig2_edge_only``, which the scan engine refuses) at 30 windows on the
+   scan engine, against the committed results as in phase 8; wall time
+   beside the fleet engine's for the same labels (phase 8's wall less its
+   edge-only run), the host seconds of planning, packing and the dispatches
+   (upload, capture, replays, the one sync), graphs captured and their
+   seconds, replays, and ``loo_trials_step`` launches (captured per window
+   × replays); then, not counted, one A2A scenario of the grid at 5
+   windows on each engine: its wall without the profiler, then under
+   ``torch.profiler`` (device activity) its profiled wall, device kernel
+   time and kernel launches per window; the idle share is read against
+   the unprofiled wall;
+8d. city — the ``city`` preset at its defaults (100,000 DCs, 4
+   observations each, 6 base-SVM iterations, wifi, StarHTL) at 2 and then
+   6 windows: one ``city_scan`` dispatch per run, an F1 curve of W values
+   in (0, 1] ending at >= 0.15, peak device memory and host peak RSS each
+   within 1.15x from 2 to 6 windows, every ledger event equal to an
+   independent count (the fleet's collection as ``fleet_size``
+   ``collect_to_mule`` events; the learning messages as the fleet engine's
+   per-pair ``Topology`` patterns give them, a quadratic in the fleet size,
+   with the center's role read from the run's center ids); then a 40-DC,
+   3-window city on the card and on the CPU with the same injected draw
+   indices: centers equal, F1 within 1e-4;
+8e. loo_shapes — every (L, R, D, M) that phases 7-8d gave the
+   ``loo_trials`` wrappers (a graph's at its capture) is a row of phases 3
+   and 3b;
 9.-11. serve — llama3.2-3b, mamba2-1.3b and recurrentgemma-9b, one at a
    time, each at full width and depth in bfloat16 (weights from the port's
    seeded initialiser) and freed before the next loads:
@@ -73,13 +109,18 @@ failure raises and the script exits non-zero without printing a result:
 
 Then the whole script's seconds, the ``{"kernels": [...]}`` line (the
 four ported kernels, and the fused step as a fifth line of the
-``loo_trials`` source) and,
-last, the ``{"ok": true, ...}`` line. Imports neither JAX nor the JAX package ``repro``.
+``loo_trials`` source; ``launches`` is phase 8's count, and the
+``loo_trials`` lines add ``launches_by_path`` for phases 8, 8c and 8d)
+and, last, the ``{"ok": true, ...}`` line. Imports neither JAX nor the JAX
+package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -93,6 +134,20 @@ import torch  # noqa: E402
 KERNEL_RTOL = 1e-5
 KERNEL_ATOL = 1e-5
 ENERGY_RTOL = 1e-6
+# Scan engine against fleet engine, and the small city card against CPU:
+# the reference's fleet-vs-loop bar (tests/test_fleet_engine.py:38).
+SCAN_F1_ATOL = 1e-4
+# The city phase: the reference's city_smoke.py gates (peak memory growth
+# from 2 to 6 windows, final F1 sanity floor).
+CITY_WINDOWS = (2, 6)
+CITY_MEMORY_RATIO = 1.15
+CITY_F1_FLOOR = 0.15
+CITY_SMALL = dict(windows=3, eval_every=1, algo="star", engine="scan",
+                  tech="wifi", fleet_size=40, obs_per_dc=4, train_iters=5)
+# The one scenario of the paper grid that phase 8c profiles on both engines
+# (an A2A label: a refine at every DC), at a few windows to keep the
+# profiler's bookkeeping short.
+PROFILE_LABEL, PROFILE_WINDOWS = "table3_a2a_4g", 5
 # Bound on |F1_port - F1_golden| for converged F1 and per-window F1 (see
 # PERF.md, "F1 bound"): the port and the JAX reference agree exactly on
 # every host-side quantity, but a float32 rounding difference can flip a
@@ -101,17 +156,29 @@ ENERGY_RTOL = 1e-6
 F1_ATOL = 5e-3
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32, outside tensor cores
-KERNEL_SHAPES = [(L, R, D, 16) for L in (1, 8, 16, 32)
-                 for R in (1, 112, 448, 1120) for D in (11, 23)]
+GRID_SHAPES = [(L, R, D, 16) for L in (1, 8, 16, 32)
+               for R in (1, 112, 448, 1120) for D in (11, 23)]
+# The (L, R, D, M) shapes that phases 7-8d give the loo_trials wrappers
+# beyond GRID_SHAPES: the fleet engine's DC groups of 2, 4, 64 and 96, and
+# the city's one refine over its center's obs_per_dc x 7 rows. The
+# ``loo_shapes`` phase fails if those phases launch a shape that is not a
+# KERNEL_SHAPES row.
+MAIN_PATH_SHAPES = [(1, 28, 23, 16), (2, 112, 23, 16), (2, 448, 23, 16),
+                    (2, 1120, 23, 16), (4, 112, 23, 16), (4, 448, 23, 16),
+                    (4, 1120, 23, 16), (64, 112, 23, 16), (64, 448, 23, 16),
+                    (96, 112, 23, 16)]
+KERNEL_SHAPES = GRID_SHAPES + MAIN_PATH_SHAPES
 HEADLINE_SHAPE = (16, 1120, 23, 16)
 TIMING_REPS = 60
-# Each KERNEL_SHAPES row's time (us) under the first loo_trials kernel (one
+# Each GRID_SHAPES row's time (us) under the first loo_trials kernel (one
 # block per DC, rows read straight from device memory), before the
-# cluster redesign (PERF.md §6; chip_smoke on an H100 80GB HBM3, 700 W).
-LOO_EARLIER_US = [7.74, 8.53, 9.92, 11.39, 14.72, 17.57, 28.1, 34.59, 9.47,
-                  10.37, 9.98, 11.49, 14.88, 17.6, 28.16, 34.78, 9.57, 10.34,
-                  9.95, 11.49, 14.94, 17.63, 28.22, 34.94, 9.6, 10.34, 10.05,
-                  11.62, 15.04, 17.86, 28.51, 35.41]
+# cluster redesign (PERF.md §6; chip_smoke on an H100 80GB HBM3, 700 W);
+# the MAIN_PATH_SHAPES rows were not timed then.
+LOO_EARLIER_US = dict(zip(GRID_SHAPES, [
+    7.74, 8.53, 9.92, 11.39, 14.72, 17.57, 28.1, 34.59, 9.47, 10.37, 9.98,
+    11.49, 14.88, 17.6, 28.16, 34.78, 9.57, 10.34, 9.95, 11.49, 14.94,
+    17.63, 28.22, 34.94, 9.6, 10.34, 10.05, 11.62, 15.04, 17.86, 28.51,
+    35.41]))
 
 # flash_attention: the JAX sweep's bounds (tests/test_kernels.py:15)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -382,7 +449,7 @@ def phase_kernel(loo):
         rows.append({"L": L, "R": R, "D": D, "M": M, "max_abs_err": err,
                      "cluster": loo.launch_plan(L, R, D, M).cluster,
                      "kernel_us": device_time_us(loo.loo_trials, args),
-                     "earlier_us": LOO_EARLIER_US[i],
+                     "earlier_us": LOO_EARLIER_US.get((L, R, D, M)),
                      "plain_us": device_time_us(loo.loo_trials_ref, args),
                      "bound_us": bound_us, "bound_by": bound_by})
     emit({"phase": "kernel", "kernel": "loo_trials", "rtol": KERNEL_RTOL,
@@ -919,6 +986,34 @@ def compare(got, want, labels):
     return e, f, c
 
 
+class ShapeLog:
+    """Wraps both ``loo_trials`` entry points to record the (L, R, D, M)
+    of every call on a card tensor (a graph's calls are made once, at its
+    capture); the launch counts stay the wrappers' own."""
+
+    NAMES = ("loo_trials", "loo_trials_step")
+
+    def __init__(self, loo):
+        self.loo, self.shapes = loo, set()
+        self.orig = {n: getattr(loo, n) for n in self.NAMES}
+
+    def _wrap(self, fn):
+        def call(ut, cc, *rest):
+            if ut.is_cuda:
+                self.shapes.add(tuple(ut.shape) + (cc.shape[-1],))
+            return fn(ut, cc, *rest)
+        return call
+
+    def __enter__(self):
+        for n, fn in self.orig.items():
+            setattr(self.loo, n, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.loo, n, fn)
+
+
 class GreedyStepTally:
     """Wraps the fleet engine's refine call to count, per call, the greedy
     steps the port runs (fixed ``min(k_max, M)``, one kernel launch each)
@@ -954,13 +1049,42 @@ class GreedyStepTally:
                 "launches_batched_early_exit": self.batched_exit}
 
 
+class Timed:
+    """Wraps ``module.name`` (a function its module calls by name) to add
+    up the host seconds of its calls and keep the last call's result: the
+    edge-only runner, so a grid's wall time can be read without its
+    edge-only labels, the scan engine's planner, packer and dispatch, and
+    the city's dispatch (its center ids)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.seconds = 0.0
+        self.last = None
+
+    def __call__(self, *a, **kw):
+        t0 = time.perf_counter()
+        self.last = self.orig(*a, **kw)
+        self.seconds += time.perf_counter() - t0
+        return self.last
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
 def phase_preset(name, overrides, golden, labels, loo, fleet, data):
+    from repro_torch.core import scenario
     from repro_torch.core.experiment import get_preset
 
     loo.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with GreedyStepTally(fleet) as tally:
+    with GreedyStepTally(fleet) as tally, \
+            Timed(scenario, "_run_edge_only") as edge:
         res = get_preset(name, **overrides).run(data, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -974,6 +1098,7 @@ def phase_preset(name, overrides, golden, labels, loo, fleet, data):
     e, f, c = compare(got, golden, labels)
     out = {"phase": name, "runs": len(res.records), "labels": len(labels),
            "wall_s": wall, "s_per_window": wall / overrides["windows"],
+           "edge_only_s": edge.seconds,
            "energy_max_rel_err": e, "f1_max_abs_err": f,
            "f1_curve_max_abs_err": c, "f1_atol": F1_ATOL,
            "loo_trials_launches": launches,
@@ -985,6 +1110,321 @@ def phase_preset(name, overrides, golden, labels, loo, fleet, data):
     check(launches > 0, f"{name}: loo_trials kernel never launched")
     check(step_launches > 0, f"{name}: the fused greedy step never launched")
     return out
+
+
+def normalised_json(result) -> str:
+    """A ``SweepResult``'s JSON with every record's engine set to
+    ``"fleet"`` (scripts/scan_parity.py's normalisation)."""
+    from repro_torch.core.experiment import SweepResult
+
+    return SweepResult(name=result.name, records=[
+        dataclasses.replace(r, cfg=dataclasses.replace(r.cfg,
+                                                       engine="fleet"))
+        for r in result.records]).to_json()
+
+
+def phase_scan_parity(runs):
+    """Each (preset, overrides, data) of ``runs`` on the fleet engine and on
+    the scan engine, both unstacked (module doc, 8b)."""
+    from repro_torch.core.dispatch import dispatch_scope
+    from repro_torch.core.experiment import get_preset
+
+    rows = []
+    for name, overrides, data in runs:
+        t0 = time.perf_counter()
+        ref = get_preset(name, engine="fleet", **overrides).run(
+            data, stack="off", device="cuda")
+        fleet_s = time.perf_counter() - t0
+        with dispatch_scope() as counts:
+            t0 = time.perf_counter()
+            got = get_preset(name, engine="scan", **overrides).run(
+                data, stack="off", device="cuda")
+            scan_s = time.perf_counter() - t0
+        diffs = [abs(a - b) for r, g in zip(ref.records, got.records)
+                 for a, b in zip(r.f1_curve, g.f1_curve)]
+        row = {"preset": name, **overrides, "runs": len(got.records),
+               "scan_windows_dispatches": counts.get("scan_windows", 0),
+               "ledgers_equal": all(r.events == g.events for r, g in
+                                    zip(ref.records, got.records)),
+               "f1_values": len(diffs),
+               "f1_values_differing": sum(d != 0 for d in diffs),
+               "f1_max_abs_diff": max(diffs),
+               "json_byte_equal": normalised_json(got) == ref.to_json(),
+               "fleet_s": fleet_s, "scan_s": scan_s}
+        rows.append(row)
+        check([r.label for r in got.records] ==
+              [r.label for r in ref.records], f"{name}: labels differ")
+        check(all(len(r.f1_curve) == len(g.f1_curve) for r, g in
+                  zip(ref.records, got.records)), f"{name}: curve lengths")
+        check(row["ledgers_equal"], f"{name}: scan ledgers differ from "
+                                    f"the fleet engine's")
+        check(row["f1_max_abs_diff"] <= SCAN_F1_ATOL, f"{name}: scan F1 "
+              f"{row['f1_max_abs_diff']} from the fleet engine's > "
+              f"{SCAN_F1_ATOL}")
+        check(row["scan_windows_dispatches"] == len(got.records),
+              f"{name}: {counts} dispatches for {len(got.records)} runs")
+    emit({"phase": "scan_parity", "f1_atol": SCAN_F1_ATOL, "rows": rows})
+    return rows
+
+
+def scenario_profile(cfg, data):
+    """One scenario on the card after a warm-up run (graphs captured,
+    handles made): its wall without the profiler, then a run under
+    ``torch.profiler`` (device activity only) for the summed device
+    kernel time and the kernel launches. The profiler's bookkeeping per
+    launch stretches the profiled wall (``profiled_wall_s``), the more so
+    the more launches a run makes, so the idle share is read against the
+    unprofiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.scenario import run_scenario
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_scenario(cfg, data, device="cuda")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run_scenario(cfg, data, device="cuda")
+    wall = timed()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiled = timed()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    check(busy > 0, f"profiler saw no device time for {cfg.engine}")
+    return {"wall_s": wall, "profiled_wall_s": profiled,
+            "device_kernel_s": busy, "idle_share": 1.0 - busy / wall,
+            "kernel_launches": len(kernels),
+            "launches_per_window": len(kernels) / cfg.windows}
+
+
+def phase_paper_scan(paper, labels, loo, data, fleet_wall_s):
+    """The paper grid's HTL labels on the scan engine (module doc, 8c);
+    the counted main path of the scan engine."""
+    from repro_torch.core import cityscan
+    from repro_torch.core.experiment import SweepResult, records_from
+    from repro_torch.core.experiment import get_preset
+    from repro_torch.core.scenario import run_sweep
+
+    spec = get_preset("paper_tables", windows=paper["windows"],
+                      n_seeds=paper["n_seeds"], engine="scan")
+    runs = [(lbl, cfg) for lbl, cfg in spec.configs()
+            if cfg.algo != "edge_only"]
+    labels = [lbl for lbl in labels if lbl != "fig2_edge_only"]
+    loo.reset_launches()
+    cityscan.reset_graph_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Timed(cityscan, "_plan_scenario") as plan, \
+            Timed(cityscan, "_pack_plan") as pack, \
+            Timed(cityscan, "_dispatch_scan") as dispatch:
+        results = run_sweep([cfg for _, cfg in runs], data,
+                            stack_seeds=True, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = cityscan.graph_stats()
+    res = SweepResult(name="paper_tables_scan", records=records_from(
+        [lbl for lbl, _ in runs], results))
+    got = summaries(res)
+    check(res.labels() == labels, f"paper_tables_scan: labels "
+                                  f"{res.labels()}")
+    e, f, c = compare(got, paper, labels)
+    out = {"phase": "paper_tables_scan", "runs": len(res.records),
+           "labels": len(labels), "wall_s": wall,
+           "s_per_window": wall / paper["windows"],
+           "fleet_wall_s_same_labels": fleet_wall_s,
+           "plan_s": plan.seconds, "pack_s": pack.seconds,
+           "dispatch_s": dispatch.seconds,
+           "graphs_captured": stats["captures"],
+           "capture_s": stats["capture_s"], "replays": stats["replays"],
+           "loo_trials_step_captured_per_window":
+               stats["loo_trials_step_launches"] / max(1, stats["replays"]),
+           "loo_trials_launches": stats["loo_trials_launches"],
+           "loo_trials_step_launches": stats["loo_trials_step_launches"],
+           "energy_max_rel_err": e, "f1_max_abs_err": f,
+           "f1_curve_max_abs_err": c, "f1_atol": F1_ATOL}
+    emit(out)
+    check(stats["replays"] == len(runs) * paper["windows"],
+          f"paper_tables_scan: {stats['replays']} replays for "
+          f"{len(runs)} x {paper['windows']} windows")
+    check(e <= ENERGY_RTOL, f"paper_tables_scan: energy rel err {e}")
+    check(f <= F1_ATOL and c <= F1_ATOL, f"paper_tables_scan: F1 errs "
+                                         f"{f}, {c} > {F1_ATOL}")
+    check(stats["loo_trials_step_launches"] > 0,
+          "paper_tables_scan: the graphs never launched loo_trials_step")
+    # not counted: one scenario of the grid profiled on both engines
+    cfg = dataclasses.replace(dict(runs)[PROFILE_LABEL],
+                              windows=PROFILE_WINDOWS)
+    emit({"phase": "paper_tables_scan_profile", "label": PROFILE_LABEL,
+          "windows": PROFILE_WINDOWS,
+          "fleet": scenario_profile(dataclasses.replace(cfg, engine="fleet"),
+                                    data),
+          "scan": scenario_profile(cfg, data)})
+    return out
+
+
+def pair_counts(tech, n, center_is_ap):
+    """{what: (bytes, n_tx, n_rx)} of one StarHTL window's learning
+    messages among ``n`` live DCs (DC 0 the AP), summed over the fleet
+    engine's per-pair ``Topology`` patterns: entropy index to every ordered
+    pair, center id broadcast, m0 gathered at the center."""
+    from repro_torch.core.energy import INDEX_BYTES, MODEL_BYTES, Ledger
+    from repro_torch.core.topology import Node, Topology
+
+    nodes = [Node(f"DC{i}", is_ap=(i == 0)) for i in range(n)]
+    ledger = Ledger()
+    topo = Topology(ledger, tech, nodes)
+    center = nodes[0 if center_is_ap else 1]
+    topo.exchange_all(INDEX_BYTES, what="entropy index")
+    topo.broadcast(center, INDEX_BYTES, what="center id")
+    topo.gather(center, MODEL_BYTES, what="m0 to center")
+    out = {}
+    for e in ledger.events:
+        _, tx, rx = out.get(e["what"], (0, 0, 0))
+        out[e["what"]] = (e["bytes"], tx + e["n_tx"], rx + e["n_rx"])
+    return out
+
+
+def city_learning_counts(tech, n, center_is_ap):
+    """:func:`pair_counts` at ``n`` DCs from its values at 3, 4 and 5: a
+    count over ordered pairs of per-role-pair constants is a quadratic in
+    the fleet size (checked at 6), so a 10^5-DC fleet needs no 10^10-pair
+    loop."""
+    p = [pair_counts(tech, k, center_is_ap) for k in (3, 4, 5, 6)]
+
+    def at(k, what, i):
+        a, b, c = (q[what][i] for q in p[:3])
+        return a + (b - a) * (k - 3) + (c - 2 * b + a) * (k - 3) * (k - 4) // 2
+
+    for what in p[0]:
+        check(all(at(6, what, i) == p[3][what][i] for i in (1, 2)),
+              f"{tech} {what}: pair counts are not quadratic in the fleet")
+    return {what: (p[0][what][0], at(n, what, 1), at(n, what, 2))
+            for what in p[0]}
+
+
+def city_ledger_mismatches(events, cfg, centers):
+    """Windows whose ledger events differ from an independent count: the
+    fleet's collection as ``fleet_size`` sensor->SM ``collect_to_mule``
+    events, then :func:`city_learning_counts`, the center's role read from
+    this run's center ids (no churn: every DC lives, DC 0 is the AP)."""
+    from repro_torch.core.energy import Ledger
+
+    check(cfg.battery_mj is None, "the city ledger check assumes no churn")
+    L0 = cfg.fleet_size
+    mule = Ledger()
+    mule.collect_to_mule(cfg.obs_per_dc)
+    col = mule.events[0]
+    roles = {r: city_learning_counts(cfg.tech, L0, r) for r in (True, False)}
+    got = [(e["tech"], e["bytes"], e["purpose"], e["n_tx"], e["n_rx"])
+           for e in events]
+    bad = []
+    for t in range(cfg.windows):
+        want = [(col["tech"], col["bytes"], "collection", L0 * col["n_tx"],
+                 L0 * col["n_rx"])] + [
+            (cfg.tech, nbytes, "learning", tx, rx)
+            for nbytes, tx, rx in roles[int(centers[t]) == 0].values()]
+        if got[4 * t:4 * t + 4] != want:
+            bad.append(t)
+    if len(got) != 4 * cfg.windows:
+        bad.append("count")
+    return bad
+
+
+def small_city_card_vs_cpu(data, seed=0):
+    """The 40-DC city on the card and on the CPU with the same injected
+    draw indices: (max |F1 card - F1 CPU|, centers equal, curves)."""
+    from repro_torch.core import cityscan
+    from repro_torch.core.scenario import ScenarioConfig
+
+    cfg = ScenarioConfig(**CITY_SMALL)
+    L = cityscan.city_fleet_pad(cfg.fleet_size)
+    idx = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, len(data.y_train), size=(cfg.windows, L, cfg.obs_per_dc)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cms, centers, _ = cityscan._city_outputs(
+            cfg, data, draw=cityscan.table_draw(idx.to(dev)), device=dev)
+        out[dev] = (cityscan._f1_curve(cms, cfg.eval_every), centers)
+    err = max(abs(a - b) for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    return err, bool(np.array_equal(out["cuda"][1], out["cpu"][1])), out
+
+
+def phase_city(loo, data):
+    """The city preset at 2 and 6 windows, and the small city card vs CPU
+    (module doc, 8d); the counted main path of the city engine."""
+    from repro_torch.core import cityscan
+    from repro_torch.core.dispatch import dispatch_scope
+    from repro_torch.core.energy import Ledger
+    from repro_torch.core.experiment import get_preset
+
+    rows = {}
+    for W in CITY_WINDOWS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        loo.reset_launches()
+        cityscan.reset_graph_stats()
+        with dispatch_scope() as counts, \
+                Timed(cityscan, "_dispatch_city") as dispatch:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = get_preset("city", windows=W).run(data, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        stats = cityscan.graph_stats()
+        rec = res.records[0]
+        centers = dispatch.last[1]
+        row = {"windows": W, "fleet_size": rec.cfg.fleet_size,
+               "obs_per_dc": rec.cfg.obs_per_dc,
+               "train_iters": rec.cfg.train_iters, "tech": rec.cfg.tech,
+               "wall_s": wall, "s_per_window": wall / W,
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "peak_rss_mb": resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss / 1024.0,
+               "city_scan_dispatches": counts.get("city_scan", 0),
+               "graphs_captured": stats["captures"],
+               "capture_s": stats["capture_s"], "replays": stats["replays"],
+               "loo_trials_launches": stats["loo_trials_launches"],
+               "loo_trials_step_launches":
+                   stats["loo_trials_step_launches"],
+               "dispatch_s": dispatch.seconds, "f1_curve": rec.f1_curve,
+               "centers": centers.tolist(),
+               "ledger_events": len(rec.events),
+               "ledger_total": Ledger(list(rec.events)).total(),
+               "ledger_windows_off_count": city_ledger_mismatches(
+                   rec.events, rec.cfg, centers)}
+        rows[W] = row
+        emit({"phase": "city", **row})
+        curve = rec.f1_curve
+        check(row["city_scan_dispatches"] == 1, f"city W={W}: {counts}")
+        check(len(curve) == W and all(0.0 < v <= 1.0 for v in curve),
+              f"city W={W}: F1 curve {curve}")
+        check(curve[-1] >= CITY_F1_FLOOR, f"city W={W}: final F1 "
+                                          f"{curve[-1]} < {CITY_F1_FLOOR}")
+        check(not row["ledger_windows_off_count"],
+              f"city W={W}: ledger differs from the pairwise count in "
+              f"windows {row['ledger_windows_off_count']}")
+        check(row["replays"] == W and row["loo_trials_step_launches"] > 0,
+              f"city W={W}: {stats}")
+    lo, hi = (rows[W] for W in CITY_WINDOWS)
+    mem = hi["peak_device_bytes"] / lo["peak_device_bytes"]
+    rss = hi["peak_rss_mb"] / lo["peak_rss_mb"]
+    err, same_centers, small = small_city_card_vs_cpu(data)
+    out = {"phase": "city_summary", "device_memory_ratio": mem,
+           "rss_ratio": rss, "max_ratio": CITY_MEMORY_RATIO,
+           "small_city_f1_max_abs_diff": err,
+           "small_city_centers_equal": same_centers,
+           "small_city_f1_card": small["cuda"][0],
+           "small_city_centers": small["cuda"][1].tolist()}
+    emit(out)
+    check(mem <= CITY_MEMORY_RATIO, f"city: device memory grew {mem}x")
+    check(rss <= CITY_MEMORY_RATIO, f"city: host RSS grew {rss}x")
+    check(same_centers, "small city: card and CPU centers differ")
+    check(err <= SCAN_F1_ATOL, f"small city: card vs CPU F1 {err}")
+    return rows
 
 
 def main() -> int:
@@ -1047,20 +1487,41 @@ def main() -> int:
             as fh:
         golden = json.load(fh)
     data = make_covtype_like(seed=golden["data_seed"])
-    phase_preset("smoke", {"windows": golden["windows"],
-                           "n_seeds": golden["n_seeds"]},
-                 golden["per_label"], list(golden["per_label"]), loo, fleet,
-                 data)
+    # phases 7-8d log the shapes they give the loo_trials wrappers
+    with ShapeLog(loo) as shape_log:
+        phase_preset("smoke", {"windows": golden["windows"],
+                               "n_seeds": golden["n_seeds"]},
+                     golden["per_label"], list(golden["per_label"]), loo,
+                     fleet, data)
 
-    # 8. the paper grid at full data size: loo_trials' counted main path
-    with open(os.path.join(ROOT, "results", "benchmarks",
-                           "paper_tables.json")) as fh:
-        paper = json.load(fh)
-    labels = [k for k, v in paper.items() if isinstance(v, dict)]
-    main_run = phase_preset("paper_tables", {"windows": paper["windows"],
-                                             "n_seeds": paper["n_seeds"]},
-                            paper, labels, loo, fleet,
-                            make_covtype_like(seed=0))
+        # 8. the paper grid at full data size: loo_trials' counted main
+        # path
+        with open(os.path.join(ROOT, "results", "benchmarks",
+                               "paper_tables.json")) as fh:
+            paper = json.load(fh)
+        labels = [k for k, v in paper.items() if isinstance(v, dict)]
+        main_run = phase_preset(
+            "paper_tables", {"windows": paper["windows"],
+                             "n_seeds": paper["n_seeds"]},
+            paper, labels, loo, fleet, make_covtype_like(seed=0))
+
+        # 8b.-8d. the scan engine against the fleet engine, the paper grid
+        # on the scan engine (its counted main path), the city
+        phase_scan_parity([
+            ("smoke", {"windows": golden["windows"],
+                       "n_seeds": golden["n_seeds"]}, data),
+            ("transport_grid", {"windows": 5}, make_covtype_like(seed=0))])
+        scan_run = phase_paper_scan(
+            paper, labels, loo, make_covtype_like(seed=0),
+            main_run["wall_s"] - main_run["edge_only_s"])
+        city_runs = phase_city(loo, make_covtype_like(seed=0))
+    # every loo_trials shape of phases 7-8d was held against its plain
+    # version in phases 3 and 3b
+    unchecked = sorted(shape_log.shapes - set(KERNEL_SHAPES))
+    emit({"phase": "loo_shapes", "main_path_shapes":
+          sorted(shape_log.shapes), "unchecked": unchecked})
+    check(not unchecked, f"loo_trials launched at shapes that phases 3 "
+                         f"and 3b do not check: {unchecked}")
 
     # 9.-11. serving, one model at a time: the counted main paths of
     # flash_attention, ssd_scan and rglru_scan
@@ -1090,14 +1551,24 @@ def main() -> int:
                 "library_ms": None if library_us is None
                 else library_us / 1e3, "shape": head["shape"]}
 
+    def by_path(key):
+        city = city_runs[CITY_WINDOWS[-1]]
+        return {"paper_tables (fleet)": main_run[key],
+                "paper_tables_scan (graph replays)": scan_run[key],
+                f"city {city['windows']} windows (graph replays)":
+                    city[key]}
+
     head["shape"] = list(HEADLINE_SHAPE)
     step_head = step_rows[KERNEL_SHAPES.index(HEADLINE_SHAPE)]
     step_head["shape"] = list(HEADLINE_SHAPE)
     fhead = flash_rows[0]
     emit({"kernels": [
-        line("loo_trials", head, worst, main_run["loo_trials_launches"]),
-        line("loo_trials_step", step_head, step_worst,
-             main_run["loo_trials_step_launches"], source="loo_trials"),
+        dict(line("loo_trials", head, worst,
+                  main_run["loo_trials_launches"]),
+             launches_by_path=by_path("loo_trials_launches")),
+        dict(line("loo_trials_step", step_head, step_worst,
+                  main_run["loo_trials_step_launches"], source="loo_trials"),
+             launches_by_path=by_path("loo_trials_step_launches")),
         line("flash_attention", fhead, flash_worst,
              served_launches("flash_attention"), fhead["library_us"]),
         line("ssd_scan", ssd_rows[0],

@@ -226,7 +226,7 @@ def _greedytl(x, y, mask, src_w, src_mask, *, num_classes: int,
     A_bias = torch.eye(C, dtype=f32, device=dev).repeat(n, 1)
     A = torch.cat([A_src, A_bias.expand(Lb, R, C)], dim=2)      # (L,R,M+C)
     yr = Yoh.reshape(Lb, R)
-    rmask = torch.repeat_interleave(mask, C, dim=1)
+    rmask = mask[:, :, None].expand(Lb, n, C).reshape(Lb, R)
     lam_d = torch.cat([torch.full((M,), lam_src, dtype=f32, device=dev),
                        torch.full((C,), lam_bias, dtype=f32, device=dev)]
                       ) + 1e-4

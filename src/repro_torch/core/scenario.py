@@ -33,15 +33,17 @@ Stack compatibility is *derived from field metadata*: every
 :class:`ScenarioConfig` field tagged ``host_side`` steers only host-side
 work, so :func:`stack_key` normalizes exactly those fields.
 
-Port of ``repro.core.scenario`` without the whole-scenario ``scan``
-engine and city mode (``repro.core.cityscan``), which belong to a later
-slice: ``engine="scan"`` validates as in the reference but raises
-:class:`NotImplementedError` when run. Everything host-side — the
-observation stream, collection draws, churn, byzantine coins, every
-ledger charge, the EMA update — is the reference's code, so ledgers match
-it exactly. Models are trained and evaluated on ``device`` (default
-``"cuda"``; :func:`repro_torch.resolve_device` raises when CUDA is missing
-and the caller did not pass ``device="cpu"``).
+A third engine, ``"scan"``, runs the whole scenario as one program
+(:mod:`repro_torch.core.cityscan`: one captured CUDA graph replayed per
+window on the card), and with ``fleet_size`` set it runs the city
+scenario instead of the paper's collection stream.
+
+Port of ``repro.core.scenario``. Everything host-side — the observation
+stream, collection draws, churn, byzantine coins, every ledger charge, the
+EMA update — is the reference's code, so ledgers match it exactly. Models
+are trained and evaluated on ``device`` (default ``"cuda"``;
+:func:`repro_torch.resolve_device` raises when CUDA is missing and the
+caller did not pass ``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -71,13 +73,9 @@ ENGINES = {
              "star": loop_engine.run_window_star},
 }
 
-# Whole-scenario engines dispatch above the per-window ENGINES table. The
-# reference's "scan" engine (repro.core.cityscan) is not ported yet:
-# configs naming it validate as in the reference, running one raises.
+# Whole-scenario engines dispatch above the per-window ENGINES table
+# (repro_torch.core.cityscan).
 SCENARIO_ENGINES = ("scan",)
-SCAN_NOT_PORTED = ("engine='scan' (and city mode) is repro.core.cityscan, "
-                   "not ported yet: ROADMAP.md Queue 1 item 7 "
-                   "(core/cityscan.py)")
 
 
 def _host(doc: str = "") -> dict:
@@ -122,8 +120,8 @@ class ScenarioConfig:
     global_update_rate: float = field(default=0.3, metadata=_host())
     # City mode (engine="scan" only): a fixed fleet of ``fleet_size`` DCs,
     # each drawing ``obs_per_dc`` observations per window ON DEVICE — the
-    # 10^5-DC scaling axis of the reference's repro.core.cityscan.run_city
-    # (not ported yet). None = the paper's host-side collection stream.
+    # 10^5-DC scaling axis (repro_torch.core.cityscan.run_city). None =
+    # the paper's host-side collection stream.
     fleet_size: Optional[int] = None
     obs_per_dc: int = 4
     # Base-SVM GD iterations, honored by the scan engine only (the
@@ -655,7 +653,10 @@ def run_scenario(cfg: ScenarioConfig, data: Dataset,
     resolve_device(device)
     validate_config(cfg)
     if cfg.engine == "scan":
-        raise NotImplementedError(SCAN_NOT_PORTED)
+        from repro_torch.core import cityscan
+        if cfg.fleet_size is not None:
+            return cityscan.run_city(cfg, data, device=device)
+        return cityscan.run_scenario_scan(cfg, data, device=device)
     rng = np.random.default_rng(cfg.seed)
     ledger = Ledger()
     stream_x, stream_y = build_stream(cfg, data, rng)

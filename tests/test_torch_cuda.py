@@ -22,18 +22,25 @@ and of the plain stages (the chunk states within 1e-3: float32 both
 sides, the same bf16 hi + lo operands, another summation order and
 cumsum); ``rglru_scan`` (float32 only) within its absolute 1e-4; both
 scans bitwise equal across launches; the reduced LMs' logits within 1e-5
-relative."""
+relative; the scan engine's graph replays bitwise equal to its body run
+eagerly on the card, the scan engine against the fleet engine and a small
+city on the card against the CPU (ledgers exactly, F1 within 1e-4, the
+reference's fleet-vs-loop bar), same-shape scan and city scenarios run
+from four threads at once against each run alone (the same bars), and the
+city's peak device memory within 1.15x from 2 to 6 windows."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FLASH_EXTRA, FLASH_TOL, KERNEL_SHAPES, REDUCED,
+from chip_smoke import (CITY_MEMORY_RATIO, CITY_SMALL, CITY_WINDOWS,
+                        FLASH_EXTRA, FLASH_TOL, KERNEL_SHAPES, REDUCED,
                         REDUCED_LOGIT_RTOL, RGLRU_SHAPES, RGLRU_TOL,
-                        SSD_SHAPES, SSD_TOL, flash_inputs, flash_kwargs,
-                        kernel_inputs, reduced_card_vs_cpu, rel_err,
-                        rglru_inputs, ssd_inputs, step_inputs)
+                        SCAN_F1_ATOL, SSD_SHAPES, SSD_TOL, flash_inputs,
+                        flash_kwargs, kernel_inputs, reduced_card_vs_cpu,
+                        rel_err, rglru_inputs, small_city_card_vs_cpu,
+                        ssd_inputs, step_inputs)
 from repro_torch.core import scenario
 from repro_torch.data.synthetic_covtype import make_covtype_like
 from repro_torch.kernels import flash_attention as fa
@@ -402,3 +409,126 @@ def test_flash_kernel_unaligned_bfloat16_takes_the_cuda_core_kernel(cuda):
     ref = fa.flash_attention_bshd_ref(q, k, v)
     assert float((out.float() - ref.float()).abs().max()) <= \
         FLASH_TOL[shape[9]]
+
+
+# ---------------------------------------------------------------------------
+# the scan and city engines: each window one replay of a captured graph
+# ---------------------------------------------------------------------------
+
+SCAN_CASES = {"a2a": dict(algo="a2a", tech="wifi", seed=1),
+              "star": dict(algo="star", tech="mesh:hops=2", seed=2,
+                           aggregate=True),
+              "a2a_trim": dict(algo="a2a", tech="ble", seed=4,
+                               byz_frac=0.3, robust_agg="trim:frac=0.2")}
+
+
+def _scan_cfg(name):
+    return scenario.ScenarioConfig(windows=4, eval_every=1, engine="scan",
+                                   **SCAN_CASES[name])
+
+
+@pytest.mark.parametrize("name", list(SCAN_CASES))
+def test_scan_window_replay_is_bitwise_the_eager_body(cuda, name):
+    """Every window replayed from the captured graph gives the carry and
+    the confusion counts that the same body run eagerly on the card gives,
+    bit for bit."""
+    from repro_torch.core import cityscan
+
+    cfg = _scan_cfg(name)
+    data = make_covtype_like(n_total=3000, seed=0)
+    plan = cityscan._pack_plan(cfg, cityscan._plan_scenario(cfg, data)[0])
+    x_test, y_oh = cityscan._eval_arrays(data, cuda)
+    prog = cityscan._scan_program(
+        cfg.algo, 7, cfg.train_iters,
+        scenario.resolve_robust(cfg.robust_agg), plan, x_test.shape[0],
+        cuda)
+    cityscan._dispatch_scan(prog, plan, cfg.global_update_rate, x_test,
+                            y_oh)                # uploads, captures, runs
+    assert prog.graph is not None and prog.step_launches > 0
+    s = prog.state
+    eager, replayed = [], []
+    for step, out in ((lambda: prog.body(s), eager),
+                      (prog.graph.replay, replayed)):
+        cityscan._reset_carry(s)
+        for _ in range(cfg.windows):
+            step()
+            out.append((s["w"].clone(), s["cms"].clone()))
+    for (we, ce), (wr, cr) in zip(eager, replayed):
+        assert torch.equal(we, wr) and torch.equal(ce, cr)
+
+
+@pytest.mark.parametrize("name", list(SCAN_CASES))
+def test_scan_engine_matches_the_fleet_engine_on_the_card(cuda, name):
+    from repro_torch.core import cityscan
+    from repro_torch.core.dispatch import dispatch_scope
+
+    cfg = _scan_cfg(name)
+    data = make_covtype_like(n_total=3000, seed=0)
+    fleet = scenario.run_scenario(dataclasses.replace(cfg, engine="fleet"),
+                                  data, device=cuda)
+    cityscan.reset_graph_stats()
+    with dispatch_scope() as counts:
+        got = scenario.run_scenario(cfg, data)       # the card by default
+    assert counts.get("scan_windows") == 1
+    assert cityscan.graph_stats()["replays"] == cfg.windows
+    assert got.ledger.events == fleet.ledger.events
+    np.testing.assert_allclose(got.f1_curve, fleet.f1_curve, rtol=0,
+                               atol=SCAN_F1_ATOL)
+
+
+def test_small_city_on_the_card_matches_the_cpu(cuda):
+    """The 40-DC city with the same injected draw indices: centers equal,
+    F1 within the fleet-vs-loop bar."""
+    err, same_centers, _ = small_city_card_vs_cpu(
+        make_covtype_like(seed=0), seed=5)
+    assert same_centers
+    assert err <= SCAN_F1_ATOL
+
+
+def test_city_device_memory_is_flat_in_windows(cuda):
+    """Per-window buffers live in the graph's pool: peak device memory at 6
+    windows within 1.15x of the peak at 2 (the reference's city_smoke bar)."""
+    import gc
+
+    from repro_torch.core import cityscan
+
+    data = make_covtype_like(n_total=3000, seed=0)
+    peaks = []
+    for W in CITY_WINDOWS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(scenario.ScenarioConfig(**CITY_SMALL),
+                                  windows=W, fleet_size=4000)
+        r = cityscan.run_city(cfg, data, device=cuda)
+        assert len(r.f1_curve) == W
+        peaks.append(torch.cuda.max_memory_allocated())
+    assert peaks[1] <= CITY_MEMORY_RATIO * peaks[0]
+
+
+def test_programs_on_the_card_take_turns_across_threads(cuda):
+    """Same-shape scan and city scenarios (two update rates, two seeds)
+    from four threads at once, the cache emptied first so captures overlap
+    other threads' runs: each gives what it gives alone."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core import cityscan
+
+    data = make_covtype_like(n_total=3000, seed=0)
+    cfgs = ([dataclasses.replace(_scan_cfg("a2a"), global_update_rate=r)
+             for r in (0.3, 0.9)]
+            + [dataclasses.replace(scenario.ScenarioConfig(**CITY_SMALL),
+                                   seed=s) for s in (0, 1)])
+
+    def run(cfg):
+        return scenario.run_scenario(cfg, data, device=cuda)
+
+    alone = [run(c) for c in cfgs]
+    assert alone[0].f1_curve != alone[1].f1_curve
+    cityscan._PROGRAMS.clear()
+    with ThreadPoolExecutor(max_workers=4) as ex:
+        got = list(ex.map(run, cfgs * 2))
+    for g, a in zip(got, alone * 2):
+        assert g.ledger.events == a.ledger.events
+        np.testing.assert_allclose(g.f1_curve, a.f1_curve, rtol=0,
+                                   atol=SCAN_F1_ATOL)

@@ -39,7 +39,9 @@ def test_port_modules_import_without_jax_or_repro():
             "repro_torch.kernels.ssd_scan", "repro_torch.kernels.rglru_scan",
             "repro_torch.models.ssd", "repro_torch.models.rglru",
             "repro_torch.configs.mamba2_1_3b",
-            "repro_torch.configs.recurrentgemma_9b"} <= set(names)
+            "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.core.cityscan",
+            "repro_torch.configs.covtype_htl"} <= set(names)
     code = "\n".join(
         ["import importlib, sys"]
         + [f"importlib.import_module({n!r})" for n in names]
@@ -49,7 +51,11 @@ def test_port_modules_import_without_jax_or_repro():
            "    PrefillTally, PlainKernels, batcher_requests,",
            "    reduced_card_vs_cpu, phase_flash, phase_serve, phase_ssd,",
            "    phase_rglru, ssd_inputs, ssd_cost, rglru_inputs,",
-           "    rglru_cost, decode_vs_prefill, kernel_shares_of_prefill)",
+           "    rglru_cost, decode_vs_prefill, kernel_shares_of_prefill,",
+           "    phase_scan_parity, phase_paper_scan, phase_city,",
+           "    small_city_card_vs_cpu, city_ledger_mismatches,",
+           "    city_learning_counts, pair_counts, ShapeLog,",
+           "    normalised_json)",
            "bad = sorted(m for m in sys.modules",
            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))",
            "assert not bad, bad",
@@ -87,6 +93,29 @@ def test_entry_points_default_to_cuda(monkeypatch):
             call()
     assert svm.train_svm(x, y, m, num_classes=7, iters=2,
                          device="cpu").shape == (55, 7)
+
+
+def test_scan_and_city_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.core import cityscan, experiment, scenario
+    from repro_torch.data.synthetic_covtype import make_covtype_like
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = make_covtype_like(n_total=700, seed=0)
+    scan = scenario.ScenarioConfig(windows=1, engine="scan")
+    city = scenario.ScenarioConfig(windows=1, engine="scan", fleet_size=40,
+                                   train_iters=5)
+    calls = [
+        lambda: scenario.run_scenario(scan, data),
+        lambda: scenario.run_scenario(city, data),
+        lambda: cityscan.run_scenario_scan(scan, data),
+        lambda: cityscan.run_city(city, data),
+        lambda: cityscan.run_city_perwindow(city, data),
+        lambda: experiment.get_preset("city", fleet_size=40,
+                                      windows=1).run(data),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_package_turns_tf32_off():

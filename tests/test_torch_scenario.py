@@ -100,12 +100,19 @@ def test_eval_cache_is_keyed_per_device_and_refuses_pickling():
 
 
 def test_validation_and_unported_engine():
+    """Unknown engines raise; the scan engine runs and matches the fleet
+    engine, ledgers exactly and F1 within the fleet==loop bar."""
     with pytest.raises(KeyError):
         t_scn.run_scenario(t_scn.ScenarioConfig(engine="warp"), DATA,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        t_scn.run_scenario(t_scn.ScenarioConfig(engine="scan", windows=2),
-                           DATA, device="cpu")
+    scan_cfg = t_scn.ScenarioConfig(engine="scan", windows=2, eval_every=1,
+                                    algo="a2a", tech="wifi")
+    scan = t_scn.run_scenario(scan_cfg, DATA, device="cpu")
+    fleet = t_scn.run_scenario(dataclasses.replace(scan_cfg, engine="fleet"),
+                               DATA, device="cpu")
+    assert scan.ledger.events == fleet.ledger.events
+    np.testing.assert_allclose(scan.f1_curve, fleet.f1_curve, rtol=0,
+                               atol=1e-4)
     assert t_scn.host_side_fields() == j_scn.host_side_fields()
     cfg = t_scn.ScenarioConfig(seed=3, tech="wifi", p_edge=0.1)
     assert dataclasses.asdict(t_scn.stack_key(cfg)) == dataclasses.asdict(
