@@ -87,9 +87,27 @@ failure raises and the script exits non-zero without printing a result:
    with the center's role read from the run's center ids); then a 40-DC,
    3-window city on the card and on the CPU with the same injected draw
    indices: centers equal, F1 within 1e-4;
-8e. loo_shapes — every (L, R, D, M) that phases 7-8d gave the
-   ``loo_trials`` wrappers (a graph's at its capture) is a row of phases 3
-   and 3b;
+8f. orchestration — the sweep backends, the service and the Pareto
+   search on the card, each held byte-equal to the sequential runs:
+   ``devices:n=2`` and ``processes:n=4`` (four CUDA contexts time-sliced
+   on one card) on phase 8's paper grid, against phase 8's JSON, walls
+   beside phase 8's; ``hosts:channel=local,n=2,retries=1`` on phase 7's
+   smoke grid, clean and with shard 0's first worker SIGKILLed
+   (``inject_kill=0``: one ``crash`` attempt, its retry on the other
+   slot), against phase 7's JSON; the sweep service on ``127.0.0.1:0``
+   (``inline`` backend, on the card): a streamed run, a cache hit
+   (``cached: true``) and a stream resumed across one-event connections
+   (``max_events=1``), each against phase 7's JSON, and the hit in
+   ``/v1/metrics``; the ``pareto`` preset at its defaults (24 windows, 2
+   seeds, full data) under ``exhaustive`` and
+   ``halving:rungs=3,keep=0.5``: equal
+   frontier labels, each ``frontier_result`` byte-equal to a plain run of
+   ``frontier_spec``, a candidate pruned before the last rung, walls,
+   window-evaluation ``cost`` and ``loo_trials`` launches per search;
+8e. loo_shapes — every (L, R, D, M) that phases 7-8d and the in-process
+   runs of 8f (devices, service, Pareto) gave the ``loo_trials`` wrappers
+   (a graph's at its capture) is a row of phases 3 and 3b (printed after
+   8f; the worker processes of 8f run the sequential run's shapes);
 9.-11. serve — llama3.2-3b, mamba2-1.3b and recurrentgemma-9b, one at a
    time, each at full width and depth in bfloat16 (weights from the port's
    seeded initialiser) and freed before the next loads:
@@ -110,7 +128,8 @@ failure raises and the script exits non-zero without printing a result:
 Then the whole script's seconds, the ``{"kernels": [...]}`` line (the
 four ported kernels, and the fused step as a fifth line of the
 ``loo_trials`` source; ``launches`` is phase 8's count, and the
-``loo_trials`` lines add ``launches_by_path`` for phases 8, 8c and 8d)
+``loo_trials`` lines add ``launches_by_path`` for phases 8, 8c, 8d and
+each Pareto search of 8f)
 and, last, the ``{"ok": true, ...}`` line. Imports neither JAX nor the JAX
 package ``repro``.
 """
@@ -169,6 +188,19 @@ MAIN_PATH_SHAPES = [(1, 28, 23, 16), (2, 112, 23, 16), (2, 448, 23, 16),
                     (96, 112, 23, 16)]
 KERNEL_SHAPES = GRID_SHAPES + MAIN_PATH_SHAPES
 HEADLINE_SHAPE = (16, 1120, 23, 16)
+# Phase 8f: the backends held byte-equal to phase 8 (paper grid) and to
+# phase 7 (smoke grid), the service's backend, and the Pareto searches on
+# the ``pareto`` preset at its defaults.
+ORCH_BACKENDS = ("devices:n=2", "processes:n=4")
+ORCH_HOSTS = "hosts:channel=local,n=2,retries=1"
+SERVICE_BACKEND = "hosts:channel=inline,n=2"
+PARETO_HALVING = "halving:rungs=3,keep=0.5"
+PARETO_SEARCHES = ("exhaustive", PARETO_HALVING)
+# The preset's defaults. Cut to 12 windows and 1 seed (to keep the script
+# near 220 s), the halving search pruned ``star_wifi``, a member of the
+# exhaustive frontier, before its last rung, so the cut defeats the
+# frontier check and the phase keeps the defaults (PERF.md §6).
+PARETO_GRID = {"windows": 24, "n_seeds": 2}
 TIMING_REPS = 60
 # Each GRID_SHAPES row's time (us) under the first loo_trials kernel (one
 # block per DC, rows read straight from device memory), before the
@@ -1104,6 +1136,7 @@ def phase_preset(name, overrides, golden, labels, loo, fleet, data):
            "loo_trials_launches": launches,
            "loo_trials_step_launches": step_launches, **tally.as_dict()}
     emit(out)
+    out["result_json"] = res.to_json()      # phase 8f's reference bytes
     check(e <= ENERGY_RTOL, f"{name}: energy rel err {e} > {ENERGY_RTOL}")
     check(f <= F1_ATOL, f"{name}: converged F1 err {f} > {F1_ATOL}")
     check(c <= F1_ATOL, f"{name}: F1 curve err {c} > {F1_ATOL}")
@@ -1427,6 +1460,186 @@ def phase_city(loo, data):
     return rows
 
 
+def phase_backends(paper_overrides, paper_run, data):
+    """``devices:n=2`` and ``processes:n=4`` on the paper grid, each
+    byte-equal to phase 8's sequential result (module doc, 8f)."""
+    from repro_torch.core.experiment import get_preset
+
+    rows = []
+    for parallel in ORCH_BACKENDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = get_preset("paper_tables", **paper_overrides).run(
+            data, parallel=parallel, device="cuda")
+        torch.cuda.synchronize()
+        row = {"parallel": parallel, "grid": "paper_tables",
+               "runs": len(res.records),
+               "wall_s": time.perf_counter() - t0,
+               "sequential_wall_s": paper_run["wall_s"],
+               "byte_equal": res.to_json() == paper_run["result_json"]}
+        emit({"phase": "orchestration", **row})
+        check(row["byte_equal"], f"{parallel}: paper_tables JSON differs "
+                                 f"from the sequential run's")
+        rows.append(row)
+    return rows
+
+
+def phase_hosts(smoke_overrides, smoke_run, data):
+    """``hosts:channel=local`` on the smoke preset, clean and with shard
+    0's first worker SIGKILLed, each byte-equal to phase 7's result; the
+    killed run logs one crash on shard 0 and its retry on the other slot
+    (module doc, 8f)."""
+    from repro_torch.core.experiment import get_preset
+
+    rows = []
+    for kill in (False, True):
+        parallel = ORCH_HOSTS + (",inject_kill=0" if kill else "")
+        t0 = time.perf_counter()
+        res = get_preset("smoke", **smoke_overrides).run(
+            data, parallel=parallel, device="cuda")
+        log = res.meta["launcher"]["shards"]
+        attempts = [[(a["status"], a["slot"]) for a in s["attempts"]]
+                    for s in log]
+        row = {"parallel": parallel, "grid": "smoke",
+               "runs": len(res.records),
+               "wall_s": time.perf_counter() - t0,
+               "sequential_wall_s": smoke_run["wall_s"],
+               "byte_equal": res.to_json() == smoke_run["result_json"],
+               "attempts": attempts}
+        emit({"phase": "orchestration", **row})
+        check(row["byte_equal"], f"{parallel}: smoke JSON differs from "
+                                 f"the sequential run's")
+        statuses = [[st for st, _ in shard] for shard in attempts]
+        want = [["crash", "ok"] if kill else ["ok"]] + \
+            [["ok"]] * (len(attempts) - 1)
+        check(statuses == want, f"{parallel}: attempts {attempts}")
+        if kill:
+            check(attempts[0][0][1] != attempts[0][1][1],
+                  f"{parallel}: the retry ran on the slot that crashed")
+        rows.append(row)
+    return rows
+
+
+def phase_service(smoke_overrides, smoke_run, data):
+    """The sweep service on ``127.0.0.1:0`` (``inline`` backend, on the
+    card): a streamed run, a cache hit and a stream resumed across
+    one-event connections, each byte-equal to phase 7's result, and the
+    hit in ``/v1/metrics`` (module doc, 8f)."""
+    import threading
+
+    from repro_torch.core.experiment import get_preset
+    from repro_torch.service.client import ServiceClient
+    from repro_torch.service.server import make_server
+
+    httpd, service = make_server(backend=SERVICE_BACKEND, device="cuda")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = ServiceClient(httpd.server_address[:2])
+        spec = get_preset("smoke", **smoke_overrides)
+        row = {"backend": SERVICE_BACKEND, "device": service.device}
+        runs = (("first", {}), ("cached", {}),
+                ("resumed", dict(cache="bypass", max_events_per_conn=1)))
+        for name, kw in runs:
+            t0 = time.perf_counter()
+            res = client.run(spec, data, **kw)
+            row[name] = {"wall_s": time.perf_counter() - t0,
+                         "cached": res.meta["service"]["cached"],
+                         "byte_equal":
+                             res.to_json() == smoke_run["result_json"]}
+        counters = client.metrics()["statsd"]["counters"]
+        row["cache_hits"] = counters.get("service.cache.hit", 0)
+        row["stream_connections"] = counters.get(
+            "service.stream.connections", 0)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    emit({"phase": "orchestration_service", **row})
+    for name, _ in runs:
+        check(row[name]["byte_equal"], f"service {name}: JSON differs from "
+                                       f"the sequential run's")
+    check(not row["first"]["cached"] and row["cached"]["cached"]
+          and not row["resumed"]["cached"],
+          f"service: cached flags {row}")
+    check(row["cache_hits"] >= 1, "service: /v1/metrics shows no cache hit")
+    check(row["stream_connections"] >= 3,
+          "service: the bounded stream did not reconnect")
+    return row
+
+
+def phase_pareto(loo, data):
+    """The Pareto search on the ``pareto`` preset (module doc, 8f): the
+    frontiers of ``exhaustive`` and ``halving`` equal, each byte-equal to
+    a plain run of ``frontier_spec``, a candidate pruned before the last
+    rung; each search's ``loo_trials`` launches counted."""
+    from repro_torch.core.experiment import get_preset
+    from repro_torch.core.pareto import frontier_spec, get_search
+
+    spec = get_preset("pareto", **PARETO_GRID)
+    rows, results = [], {}
+    for name in PARETO_SEARCHES:
+        search = get_search(name)
+        loo.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = search.run(spec, data, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        results[name] = res
+        early = [e["label"] for e in res.ledger if e["status"] == "pruned"
+                 and e["pruned_at_rung"] < search.rungs - 1]
+        rows.append({"search": name, "wall_s": wall,
+                     "frontier": res.frontier_labels(), "cost": res.cost,
+                     "statuses": res.dominated_counts(),
+                     "pruned_before_last_rung": early,
+                     "loo_trials_launches": loo.launches,
+                     "loo_trials_step_launches": loo.step_launches})
+    labels = rows[0]["frontier"]
+    plain = {}                  # one plain run per distinct frontier
+    for res in results.values():
+        key = tuple(res.frontier_labels())
+        if key not in plain:
+            plain[key] = frontier_spec(spec, key).run(
+                data, device="cuda").to_json()
+    out = {"phase": "orchestration_pareto", "grid": PARETO_GRID,
+           "labels": len(spec.rows()), "searches": rows,
+           "frontiers_equal": all(r["frontier"] == labels for r in rows),
+           "frontier_byte_equal": {
+               n: r.frontier_result.to_json()
+               == plain[tuple(r.frontier_labels())]
+               for n, r in results.items()}}
+    emit(out)
+    check(out["frontiers_equal"], f"pareto: frontiers differ: "
+                                  f"{[r['frontier'] for r in rows]}")
+    check(all(out["frontier_byte_equal"].values()),
+          f"pareto: frontier_result differs from a plain run "
+          f"{out['frontier_byte_equal']}")
+    halving = rows[PARETO_SEARCHES.index(PARETO_HALVING)]
+    check(halving["pruned_before_last_rung"],
+          "pareto: halving pruned no candidate before its last rung")
+    for r in rows:
+        check(r["loo_trials_step_launches"] > 0,
+              f"pareto {r['search']}: the fused step never launched")
+    return {r["search"]: r for r in rows}
+
+
+def phase_orchestration(loo, smoke_overrides, smoke_run, smoke_data,
+                        paper_overrides, paper_run, paper_data):
+    """Phase 8f (module doc): every sweep backend, the service and the
+    Pareto search on the card, each held byte-equal to the sequential
+    runs of phases 7 and 8."""
+    t0 = time.perf_counter()
+    backends = phase_backends(paper_overrides, paper_run, paper_data)
+    hosts = phase_hosts(smoke_overrides, smoke_run, smoke_data)
+    service = phase_service(smoke_overrides, smoke_run, smoke_data)
+    pareto = phase_pareto(loo, paper_data)
+    emit({"phase": "orchestration_total",
+          "seconds": time.perf_counter() - t0})
+    return {"backends": backends, "hosts": hosts, "service": service,
+            "pareto": pareto}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1487,12 +1700,13 @@ def main() -> int:
             as fh:
         golden = json.load(fh)
     data = make_covtype_like(seed=golden["data_seed"])
-    # phases 7-8d log the shapes they give the loo_trials wrappers
+    # phases 7-8d and 8f log the shapes they give the loo_trials wrappers
+    smoke_overrides = {"windows": golden["windows"],
+                       "n_seeds": golden["n_seeds"]}
     with ShapeLog(loo) as shape_log:
-        phase_preset("smoke", {"windows": golden["windows"],
-                               "n_seeds": golden["n_seeds"]},
-                     golden["per_label"], list(golden["per_label"]), loo,
-                     fleet, data)
+        smoke_run = phase_preset("smoke", smoke_overrides,
+                                 golden["per_label"],
+                                 list(golden["per_label"]), loo, fleet, data)
 
         # 8. the paper grid at full data size: loo_trials' counted main
         # path
@@ -1500,10 +1714,11 @@ def main() -> int:
                                "paper_tables.json")) as fh:
             paper = json.load(fh)
         labels = [k for k, v in paper.items() if isinstance(v, dict)]
-        main_run = phase_preset(
-            "paper_tables", {"windows": paper["windows"],
-                             "n_seeds": paper["n_seeds"]},
-            paper, labels, loo, fleet, make_covtype_like(seed=0))
+        paper_overrides = {"windows": paper["windows"],
+                           "n_seeds": paper["n_seeds"]}
+        main_run = phase_preset("paper_tables", paper_overrides, paper,
+                                labels, loo, fleet,
+                                make_covtype_like(seed=0))
 
         # 8b.-8d. the scan engine against the fleet engine, the paper grid
         # on the scan engine (its counted main path), the city
@@ -1515,8 +1730,13 @@ def main() -> int:
             paper, labels, loo, make_covtype_like(seed=0),
             main_run["wall_s"] - main_run["edge_only_s"])
         city_runs = phase_city(loo, make_covtype_like(seed=0))
-    # every loo_trials shape of phases 7-8d was held against its plain
-    # version in phases 3 and 3b
+
+        # 8f. the sweep backends, the service and the Pareto search
+        orch = phase_orchestration(loo, smoke_overrides, smoke_run, data,
+                                   paper_overrides, main_run,
+                                   make_covtype_like(seed=0))
+    # every loo_trials shape of phases 7-8d and 8f was held against its
+    # plain version in phases 3 and 3b
     unchecked = sorted(shape_log.shapes - set(KERNEL_SHAPES))
     emit({"phase": "loo_shapes", "main_path_shapes":
           sorted(shape_log.shapes), "unchecked": unchecked})
@@ -1556,7 +1776,9 @@ def main() -> int:
         return {"paper_tables (fleet)": main_run[key],
                 "paper_tables_scan (graph replays)": scan_run[key],
                 f"city {city['windows']} windows (graph replays)":
-                    city[key]}
+                    city[key],
+                **{f"pareto {name} (fleet)": row[key]
+                   for name, row in orch["pareto"].items()}}
 
     head["shape"] = list(HEADLINE_SHAPE)
     step_head = step_rows[KERNEL_SHAPES.index(HEADLINE_SHAPE)]

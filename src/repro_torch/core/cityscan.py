@@ -161,6 +161,9 @@ def _window_cm(w, x_test, y_oh, num_classes: int):
 _STATS = {"captures": 0, "capture_s": 0.0, "replays": 0,
           "loo_trials_launches": 0, "loo_trials_step_launches": 0}
 _STATS_LOCK = threading.Lock()
+# One capture at a time in the process: ``torch.cuda.graph`` synchronises
+# the device on entry, which CUDA refuses while another thread captures.
+_CAPTURE_LOCK = threading.Lock()
 
 
 def graph_stats() -> dict:
@@ -228,11 +231,12 @@ class _Program:
             self.body(self.state)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        trials, steps = kernel.launches, kernel.step_launches
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.body(self.state)
-        self.trial_launches = kernel.launches - trials
-        self.step_launches = kernel.step_launches - steps
+        with _CAPTURE_LOCK:
+            trials, steps = kernel.launches, kernel.step_launches
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.body(self.state)
+            self.trial_launches = kernel.launches - trials
+            self.step_launches = kernel.step_launches - steps
         self.graph = graph
         _add_stats(captures=1, capture_s=time.perf_counter() - t0)
 

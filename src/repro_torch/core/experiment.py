@@ -19,16 +19,14 @@ This module gives that surface a declarative form:
   smoke grid, and a mesh/BLE/LoRa technology grid over the parameterized
   transport registry.
 
-``SweepSpec.run(data, stack="auto")`` evaluates the grid through
-:func:`repro_torch.core.scenario.run_sweep` with metadata-driven replica
-stacking (configs differing only in ``host_side`` fields share one
-dispatch set per window), on ``device`` (default ``"cuda"``).
+``SweepSpec.run(data, stack="auto", parallel="none")`` evaluates the grid
+through an executor of :mod:`repro_torch.core.parallel` with
+metadata-driven replica stacking (configs differing only in ``host_side``
+fields share one dispatch set per window), on ``device`` (default
+``"cuda"``).
 
 Port of ``repro.core.experiment``: the spec, its wire form and canonical
-hash, the result type and every preset are the reference's. Execution
-supports ``parallel="none"`` only — the sequential executor of
-``repro.core.parallel``, inlined; the other backends come with the
-orchestration slice (ROADMAP.md Queue 1 item 8).
+hash, the result type and every preset are the reference's.
 """
 from __future__ import annotations
 
@@ -45,12 +43,8 @@ import numpy as np
 from repro_torch import resolve_device
 from repro_torch.core.energy import Ledger
 from repro_torch.core.scenario import (ScenarioConfig, ScenarioResult,
-                                       run_sweep, validate_config)
+                                       validate_config)
 from repro_torch.data.synthetic_covtype import Dataset
-
-PARALLEL_NOT_PORTED = ("parallel={!r}: only 'none' is ported; the devices, "
-                       "processes and hosts executors (repro.core.parallel, "
-                       "repro.core.launcher) are ROADMAP.md Queue 1 item 8")
 
 LABEL_AXIS = "_label"     # reserved zip-axis name: explicit per-row labels
 
@@ -256,22 +250,37 @@ class SweepSpec:
         config sequentially. Both go through the same engines, so they
         agree to the engine-parity tolerance.
 
-        ``parallel="none"`` (this host, sequential over stacking groups)
-        is the only backend ported; any other spec raises
-        :class:`NotImplementedError`."""
+        ``parallel`` picks the execution backend by spec string
+        (:func:`repro_torch.core.parallel.get_executor`): ``"none"``
+        (sequential over stacking groups), ``"devices:n=K"`` (K shards
+        over the cards, shard k on ``cuda:{k % count}``),
+        ``"processes:n=K"`` (a spawned worker pool) or
+        ``"hosts:channel=...,n=K,retries=R"`` (the launcher of
+        :mod:`repro_torch.core.launcher`). The device is the caller's:
+        with ``device="cpu"`` every backend runs its shards on the CPU.
+        Stack-key groups are never split across shards, so every backend
+        runs the same stacked computations in the same within-group order
+        and the result JSON is byte-equal across backends. Backends may
+        report execution metadata (the launcher's per-shard attempt log)
+        through the out-of-band ``SweepResult.meta`` field."""
+        from repro_torch.core.parallel import get_executor
+
         if stack not in ("auto", "off"):
             raise ValueError(f"stack must be 'auto' or 'off', got {stack!r}")
-        if parallel != "none":
-            raise NotImplementedError(PARALLEL_NOT_PORTED.format(parallel))
+        executor = get_executor(parallel)
         resolve_device(device)
         runs = self.configs()
         for _, cfg in runs:
             validate_config(cfg)
-        results = run_sweep([cfg for _, cfg in runs], data,
-                            stack_seeds=(stack == "auto"), device=device)
-        return SweepResult(name=self.name,
-                           records=records_from([lbl for lbl, _ in runs],
-                                                results))
+        labels = [lbl for lbl, _ in runs]
+        results, exec_meta = executor.execute_with_meta(
+            labels, [cfg for _, cfg in runs], data,
+            stack=(stack == "auto"), device=device)
+        out = SweepResult(name=self.name,
+                          records=records_from(labels, results))
+        if exec_meta:
+            out.meta.update(exec_meta)
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -704,8 +704,8 @@ def stack_key(cfg: ScenarioConfig) -> ScenarioConfig:
     Which fields those are is declared as ``host_side`` field metadata on
     :class:`ScenarioConfig` — this function is purely derived.
 
-    In the reference the key is also the sharding atom of the parallel
-    sweep executor (``repro.core.parallel``, not ported yet).
+    The key is also the sharding atom of the parallel sweep executors
+    (:mod:`repro_torch.core.parallel`).
     """
     return dataclasses.replace(cfg, **_HOST_SIDE_DEFAULTS)
 
@@ -719,9 +719,9 @@ def stack_groups(configs: Sequence[ScenarioConfig],
                  ) -> List[List[int]]:
     """Indices of ``configs`` grouped by ``key_fn`` (default
     :func:`stack_key`), groups in first-appearance order, indices
-    ascending — the grouping entry of the stacked sweep driver below (and,
-    in the reference, of the shard partitioner in ``repro.core.parallel``,
-    so grouping semantics cannot diverge between the two)."""
+    ascending — the grouping entry of the stacked sweep driver below and of
+    the shard partitioner in :mod:`repro_torch.core.parallel`, so grouping
+    semantics cannot diverge between the two."""
     groups: "OrderedDict[object, List[int]]" = OrderedDict()
     for i, cfg in enumerate(configs):
         groups.setdefault(key_fn(cfg), []).append(i)

@@ -7,11 +7,15 @@ shared library under ``<repo>/build/kernels/`` and loaded with ``ctypes``
 helpers live in ``csrc/hopper.cuh``. The library's file name carries a
 digest of its source, of the headers and of the flags, so an edited
 source or header never loads a stale build. A missing ``nvcc`` or a failed compile raises: there is no
-fallback.
+fallback. Several processes may build at once (the sweep's process and
+host workers on a fresh checkout): an exclusive ``flock`` on
+``BUILD_DIR/.build.lock`` lets one of them compile while the others wait,
+then load what it built.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -53,27 +57,39 @@ def library_path(name: str) -> Path:
 
 def build(names: Sequence[str]) -> Dict[str, Path]:
     """Compile every named kernel whose library is missing, one ``nvcc``
-    per source, all started together. Returns {name: library path}; the
-    compiler's ``-Xptxas -v`` report lands beside each library as
-    ``.log``. Raises :class:`RuntimeError` naming the failed sources."""
+    per source, all started together, under the build directory's
+    exclusive lock (another process building the same sources makes this
+    one wait, then find the libraries built). Returns {name: library
+    path}; the compiler's ``-Xptxas -v`` report lands beside each library
+    as ``.log``. Raises :class:`RuntimeError` naming the failed
+    sources."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {n: library_path(n) for n in names}
-    procs = {}
-    for n, lib in out.items():
-        if lib.exists():
-            continue
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        procs[n] = (subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
-    failed = []
-    for n, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        out[n].with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out[n])
+    with open(BUILD_DIR / ".build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)     # released when it closes
+        procs = {}
+        for n, lib in out.items():
+            if lib.exists():
+                continue
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            procs[n] = (subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{n}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp)
+        failed = []
+        for n, (proc, tmp) in procs.items():
+            log, _ = proc.communicate()
+            # temp-and-rename: a reader of the report never sees it half
+            # written
+            log_path = out[n].with_suffix(".log")
+            tmp_log = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+            tmp_log.write_text(log)
+            os.replace(tmp_log, log_path)
+            if proc.returncode != 0:
+                failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, out[n])
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return out

@@ -94,3 +94,55 @@ def test_kernel_label_reads_bool_template_arguments():
     rep = build.ptxas_report(log)
     assert rep["loo_trials_kernel<32,1>"]["registers"] == 128
     assert rep["loo_trials_kernel<16,0>"]["spill_stores"] == 8
+
+
+BUILD_IN_CHILD = """
+import sys
+from pathlib import Path
+from repro_torch.kernels import build
+root = Path(sys.argv[1])
+build.CSRC, build.BUILD_DIR = root / "csrc", root / "build"
+build.nvcc_path = lambda: str(root / "nvcc")
+print(build.build(["k"])["k"])
+"""
+
+FAKE_NVCC = """#!/bin/sh
+# counts its runs, takes a while, writes its -o output and a report
+echo run >> "$(dirname "$0")/nvcc_runs"
+sleep 1
+while [ "$1" != "-o" ]; do shift; done
+echo lib > "$2"
+echo "ptxas info    : Used 8 registers"
+"""
+
+
+def test_processes_building_at_once_compile_once(tmp_path):
+    """Two processes that call ``build`` on the same source at once: one
+    runs ``nvcc`` while the other waits on the build directory's lock,
+    then finds the library built; both return it, with its report."""
+    import os
+    import subprocess
+    import sys
+
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "k.cu").write_text("int k;\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    src = os.path.dirname(os.path.dirname(os.path.dirname(build.__file__)))
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = [subprocess.Popen([sys.executable, "-c", BUILD_IN_CHILD,
+                               str(tmp_path)], env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    libs = {out.strip() for out, _ in outs}
+    assert len(libs) == 1
+    lib = libs.pop()
+    assert open(lib).read() == "lib\n"
+    assert (tmp_path / "nvcc_runs").read_text() == "run\n"
+    log = open(lib[:-3] + ".log").read()
+    assert build.ptxas_report(log) == {}
+    assert "Used 8 registers" in log
+    assert not list((tmp_path / "build").glob("*.tmp"))

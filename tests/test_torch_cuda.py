@@ -27,7 +27,9 @@ eagerly on the card, the scan engine against the fleet engine and a small
 city on the card against the CPU (ledgers exactly, F1 within 1e-4, the
 reference's fleet-vs-loop bar), same-shape scan and city scenarios run
 from four threads at once against each run alone (the same bars), and the
-city's peak device memory within 1.15x from 2 to 6 windows."""
+city's peak device memory within 1.15x from 2 to 6 windows; the sweep
+backends (devices, processes, inline hosts) on the card byte-equal to
+the sequential card run."""
 import dataclasses
 
 import numpy as np
@@ -532,3 +534,25 @@ def test_programs_on_the_card_take_turns_across_threads(cuda):
         assert g.ledger.events == a.ledger.events
         np.testing.assert_allclose(g.f1_curve, a.f1_curve, rtol=0,
                                    atol=SCAN_F1_ATOL)
+
+
+@pytest.mark.parametrize("parallel", ["devices:n=2", "processes:n=2",
+                                      "hosts:channel=inline,n=2"])
+def test_sweep_backends_on_the_card_are_byte_equal(cuda, parallel):
+    """Every backend on the card gives the sequential card run's JSON
+    byte for byte (shards on ``cuda:{k % count}``; worker processes
+    open their own CUDA contexts)."""
+    from repro_torch.core.experiment import get_preset
+
+    data = make_covtype_like(n_total=2500, seed=1)
+    spec = get_preset("smoke", windows=2, n_seeds=2)
+    want = spec.run(data, device="cuda").to_json()
+    assert spec.run(data, parallel=parallel,
+                    device="cuda").to_json() == want
+
+
+def test_host_only_guard_refuses_card_tensors(cuda):
+    from repro_torch.core.parallel import assert_host_only
+
+    with pytest.raises(TypeError, match="cuda"):
+        assert_host_only({"x": [torch.zeros(2, device=cuda)]})

@@ -50,8 +50,8 @@ def test_wire_round_trip_and_errors():
         t_exp.SweepSpec(axes={"no_such_field": (1,)})
     with pytest.raises(ValueError):
         t_exp.SweepSpec(axes={"seed": (0, 0)}, label="dup").rows()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        spec.run(None, parallel="processes:n=2", device="cpu")
+    with pytest.raises(KeyError, match="no sweep executor"):
+        spec.run(None, parallel="no_such_executor:n=2", device="cpu")
 
 
 def test_small_sweep_matches_reference_and_round_trips():

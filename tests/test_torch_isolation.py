@@ -41,7 +41,12 @@ def test_port_modules_import_without_jax_or_repro():
             "repro_torch.configs.mamba2_1_3b",
             "repro_torch.configs.recurrentgemma_9b",
             "repro_torch.core.cityscan",
-            "repro_torch.configs.covtype_htl"} <= set(names)
+            "repro_torch.configs.covtype_htl",
+            "repro_torch.core.parallel", "repro_torch.core.launcher",
+            "repro_torch.core.pareto", "repro_torch.service",
+            "repro_torch.service.statsd", "repro_torch.service.cache",
+            "repro_torch.service.server",
+            "repro_torch.service.client"} <= set(names)
     code = "\n".join(
         ["import importlib, sys"]
         + [f"importlib.import_module({n!r})" for n in names]
@@ -56,6 +61,8 @@ def test_port_modules_import_without_jax_or_repro():
            "    small_city_card_vs_cpu, city_ledger_mismatches,",
            "    city_learning_counts, pair_counts, ShapeLog,",
            "    normalised_json)",
+           "from chip_smoke import (phase_orchestration, phase_backends,",
+           "    phase_hosts, phase_service, phase_pareto, PARETO_SEARCHES)",
            "bad = sorted(m for m in sys.modules",
            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))",
            "assert not bad, bad",
@@ -70,6 +77,8 @@ def test_port_modules_import_without_jax_or_repro():
 def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.core import experiment, scenario, svm
+    from repro_torch.core.pareto import get_search
+    from repro_torch.service.server import SweepService
     from repro_torch.data.synthetic_covtype import make_covtype_like
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -86,6 +95,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: scenario.run_sweep([cfg], data),
         lambda: experiment.get_preset("smoke", windows=1,
                                       n_seeds=1).run(data),
+        lambda: experiment.get_preset("smoke", windows=1, n_seeds=1).run(
+            data, parallel="processes:n=2"),
+        lambda: experiment.get_preset("smoke", windows=1, n_seeds=1).run(
+            data, parallel="hosts:channel=inline,n=2"),
+        lambda: get_search("exhaustive").run(
+            experiment.get_preset("smoke", windows=1, n_seeds=1), data),
+        lambda: SweepService(),
         lambda: resolve_device("cuda:0"),
     ]
     for call in calls:
