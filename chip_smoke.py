@@ -30,8 +30,11 @@ failure raises and the script exits non-zero without printing a result:
    across launches, with times;
 4. flash — ``flash_attention`` against its plain version at every shape
    the serve phases give it (llama3.2-3b: H 24, KV 8, d 128, causal;
-   recurrentgemma-9b: H 16, KV 1, d 256, window 2048; bfloat16, B 4 x
-   S 2048 and B 1 at each batcher prompt length) plus float32, a 512
+   recurrentgemma-9b: H 16, KV 1, d 256, window 2048; olmoe-1b-7b: H 16,
+   KV 16, d 128; bfloat16, B 4 x S 2048 and B 1 at each batcher prompt
+   length; llava-next-mistral-7b: B 4 x 4928 positions, H 32, KV 8, d
+   128; whisper-medium: its non-causal encoder, B 4 x 1500 frames, and its
+   causal decoder, B 4 x 224, H 16, KV 16, d 64) plus float32, a 512
    window, d 32/64, non-causal and q_offset > 0 (max abs error 2e-5 in
    float32, 2e-2 in bfloat16: the JAX sweep's bounds), two launches
    bitwise equal; kernel, plain, ``scaled_dot_product_attention``
@@ -108,28 +111,35 @@ failure raises and the script exits non-zero without printing a result:
    runs of 8f (devices, service, Pareto) gave the ``loo_trials`` wrappers
    (a graph's at its capture) is a row of phases 3 and 3b (printed after
    8f; the worker processes of 8f run the sequential run's shapes);
-9.-11. serve — llama3.2-3b, mamba2-1.3b and recurrentgemma-9b, one at a
-   time, each at full width and depth in bfloat16 (weights from the port's
-   seeded initialiser) and freed before the next loads:
-   ``ServeEngine.generate`` on 4 prompts of 2048 tokens (32 new), then a
+9.-16. serve — llama3.2-3b, mamba2-1.3b, recurrentgemma-9b, olmoe-1b-7b,
+   minicpm3-4b, deepseek-v3-671b, llava-next-mistral-7b and whisper-medium,
+   one at a time, each at full width in bfloat16 (weights from the port's
+   seeded initialiser) and freed before the next loads; every one at full
+   depth but deepseek, cut to its 3 dense-MLP layers and 1 MoE layer,
+   without its MTP block (``SERVES[...]["cut"]``, PERF.md §4):
+   ``ServeEngine.generate`` on 4 prompts of 2048 tokens (32 new; llava's
+   after 2880 frontend embeddings, whisper's 224 tokens after a 24-layer
+   encoder over 1500 frames), then, for the text-only families, a
    ``ContinuousBatcher`` with 4 slots answering 8 requests of mixed
    lengths; the main-path runs whose kernel launches are counted
-   (``flash_attention`` 28 per llama prefill and 12 per recurrentgemma
-   prefill, ``ssd_scan`` 48 per mamba2 prefill, ``rglru_scan`` 26 per
-   recurrentgemma prefill). Then, not counted: prefill logits with the
-   kernels against the plain versions swapped in, one-step decode against
-   a full prefill, and each kernel's share of prefill device time
-   (``torch.profiler``);
-12. reduced — the reduced llama3.2-3b, mamba2-1.3b and recurrentgemma-9b
-   (5 layers: one period with attention, two tail layers) configs in
-   float32, the port on the card against the port on the CPU with the
-   same weights.
+   (``flash_attention`` 28 per llama prefill, 12 per recurrentgemma, 16
+   per olmoe, 32 per llava, 48 per whisper (24 encoder + 24 decoder);
+   ``ssd_scan`` 48 per mamba2 prefill, ``rglru_scan`` 26 per
+   recurrentgemma prefill; MLA runs no kernel). Then, not counted:
+   prefill logits with the kernels against the plain versions swapped in
+   (where the path has a kernel), one-step decode against a full prefill
+   (the MoE families at capacity factor 8, as the reference's test), and
+   each kernel's share of prefill device time (``torch.profiler``);
+17. reduced — the reduced configs of those eight archs (recurrentgemma with
+   5 layers: one period with attention, two tail layers) in float32, the
+   port on the card against the port on the CPU with the same weights.
 
 Then the whole script's seconds, the ``{"kernels": [...]}`` line (the
 four ported kernels, and the fused step as a fifth line of the
-``loo_trials`` source; ``launches`` is phase 8's count, and the
-``loo_trials`` lines add ``launches_by_path`` for phases 8, 8c, 8d and
-each Pareto search of 8f)
+``loo_trials`` source; ``launches`` is phase 8's count for
+``loo_trials`` and the serve phases' for the others; the ``loo_trials``
+lines add ``launches_by_path`` for phases 8, 8c, 8d and each Pareto
+search of 8f, the flash line one entry per served arch)
 and, last, the ``{"ok": true, ...}`` line. Imports neither JAX nor the JAX
 package ``repro``.
 """
@@ -229,16 +239,29 @@ BATCHER_BUDGETS = (32, 8, 24, 16, 32, 12, 20, 28)
 # spliced beside one of another length, in both packages: ROADMAP Queue 3)
 HYBRID_PROMPTS = (2048, 2100, 2300, 2500, 2650, 2800, 2900, 3000)
 BATCHER_SLOTS = 4
-# Per served arch: its batcher's prompts and cache budget, the launches of
-# each kernel of its prefill per prefill call, and the bound on the
-# relative logit error (max |a - b| / max |b|) between two bfloat16 runs
-# of the full model: kernels vs plain versions in prefill, and one-step
-# decode vs prefill. Each bound is set from the bfloat16 drift measured
-# against a float32 twin on the same weights
-# (scripts/torch_serve_numerics.py on the H100; PERF.md): two bfloat16
-# runs may lie up to twice that drift apart (rounded up to two digits).
-# Drift, and kernels vs plain in float32: llama3.2-3b 5.2e-2 (1.7e-5),
-# mamba2-1.3b 5.73e-2 (9.7e-6), recurrentgemma-9b 3.79e-2 (8.2e-6).
+# whisper's decoder prompt: within its 448-token decoder context
+# (``max_decode_kv``) with the 32 new tokens
+AUDIO_PROMPT = 224
+# The MoE families' decode-vs-prefill check runs at this capacity factor,
+# as the reference's tests/test_decode_equivalence.py does: capacity drops
+# depend on the token set, so only a drop-free dispatch can agree.
+MOE_CHECK_CAPACITY = 8.0
+# Per served arch: its batcher's prompts and cache budget (None: the
+# family has no batcher, as in the reference), its generate prompt length,
+# cuts of its config (``cut``, PERF.md §4), the launches of each kernel of
+# its prefill per prefill call, and the bound on the relative logit error
+# (max |a - b| / max |b|) between two bfloat16 runs of the full model:
+# kernels vs plain versions in prefill, and one-step decode vs prefill.
+# Each bound is set from the bfloat16 drift measured against a float32
+# twin on the same weights (scripts/torch_serve_numerics.py on the H100;
+# PERF.md): two bfloat16 runs may lie up to twice that drift apart
+# (rounded up to two digits). Drift, and kernels vs plain in float32:
+# llama3.2-3b 5.2e-2 (1.7e-5), mamba2-1.3b 5.73e-2 (9.7e-6),
+# recurrentgemma-9b 3.79e-2 (8.2e-6); the largest of the four bf16 vs f32
+# errors the script prints: olmoe-1b-7b 2.92e-2 (4.6e-5), minicpm3-4b
+# 6.68e-2, deepseek-v3-671b 1.54e-2 (at batch 1: its float32 twin takes 60
+# GB), llava-next-mistral-7b 6.24e-2 (2.1e-5), whisper-medium 1.81e-2
+# (1.4e-6); MLA runs no kernel.
 SERVES = {
     "llama3.2-3b": dict(prompts=BATCHER_PROMPTS, max_len=2112,
                         per_prefill={"flash_attention": 28},
@@ -249,21 +272,48 @@ SERVES = {
                               per_prefill={"rglru_scan": 26,
                                            "flash_attention": 12},
                               logit_rtol=7.6e-2),
+    "olmoe-1b-7b": dict(prompts=BATCHER_PROMPTS, max_len=2112,
+                        per_prefill={"flash_attention": 16},
+                        logit_rtol=5.9e-2),
+    "minicpm3-4b": dict(prompts=BATCHER_PROMPTS, max_len=2112,
+                        per_prefill={}, logit_rtol=1.4e-1),
+    # 4 of 61 layers: the 3 dense-MLP layers and 1 MoE layer; no MTP block
+    "deepseek-v3-671b": dict(prompts=BATCHER_PROMPTS, max_len=2112,
+                             per_prefill={}, logit_rtol=3.1e-2,
+                             cut=dict(num_layers=4, num_mtp_modules=0)),
+    "llava-next-mistral-7b": dict(prompts=None,
+                                  per_prefill={"flash_attention": 32},
+                                  logit_rtol=1.3e-1),
+    "whisper-medium": dict(prompts=None, prompt=AUDIO_PROMPT,
+                           per_prefill={"flash_attention": 48},
+                           logit_rtol=3.7e-2),
 }
 # The reduced configs in float32, card against CPU: other summation orders.
 REDUCED_LOGIT_RTOL = 1e-5
 REDUCED = (("llama3.2-3b", None), ("mamba2-1.3b", None),
-           ("recurrentgemma-9b", 5))      # 1 period (attention) + 2 tail
+           ("recurrentgemma-9b", 5),      # 1 period (attention) + 2 tail
+           ("minicpm3-4b", None), ("olmoe-1b-7b", None),
+           ("deepseek-v3-671b", None), ("llava-next-mistral-7b", None),
+           ("whisper-medium", None))
 # (B, H, KV, Sq, Skv, d, causal, window, q_offset, dtype); the first one is
 # the headline (llama's generate prefill), then llama's batcher, then
 # recurrentgemma's MQA local attention (head_dim 256, window 2048): its
-# generate prefill and its batcher.
+# generate prefill and its batcher; then olmoe's MHA (generate, batcher),
+# llava's 2880 image + 2048 text positions, and whisper's non-causal
+# encoder over 1500 frames (ragged against the tiles) and causal decoder.
 FLASH_MAIN = [(SERVE_BATCH, 24, 8, SERVE_PROMPT, SERVE_PROMPT, 128, True, 0,
                0, "bfloat16")] + [(1, 24, 8, n, n, 128, True, 0, 0,
                                    "bfloat16") for n in BATCHER_PROMPTS] + [
     (SERVE_BATCH, 16, 1, SERVE_PROMPT, SERVE_PROMPT, 256, True, 2048, 0,
      "bfloat16")] + [(1, 16, 1, n, n, 256, True, 2048, 0, "bfloat16")
-                     for n in HYBRID_PROMPTS]
+                     for n in HYBRID_PROMPTS] + [
+    (SERVE_BATCH, 16, 16, SERVE_PROMPT, SERVE_PROMPT, 128, True, 0, 0,
+     "bfloat16")] + [(1, 16, 16, n, n, 128, True, 0, 0, "bfloat16")
+                     for n in BATCHER_PROMPTS] + [
+    (SERVE_BATCH, 32, 8, 4928, 4928, 128, True, 0, 0, "bfloat16"),
+    (SERVE_BATCH, 16, 16, 1500, 1500, 64, False, 0, 0, "bfloat16"),
+    (SERVE_BATCH, 16, 16, AUDIO_PROMPT, AUDIO_PROMPT, 64, True, 0, 0,
+     "bfloat16")]
 FLASH_EXTRA = [
     (1, 24, 8, 777, 777, 128, True, 0, 0, "float32"),
     (1, 24, 8, 2000, 2000, 128, True, 512, 0, "bfloat16"),
@@ -771,8 +821,14 @@ class PlainKernels:
         def ssd_plain(x, dt, A, Bm, Cm, *, chunk):
             return ssd_chunked(x, dt, A, Bm, Cm, chunk)
 
-        self.swaps = [(blocks, "flash_attention_bshd",
-                       flash_attention_bshd_ref),
+        def flash_plain(q, k, v, **kw):
+            # one sequence at a time: llava's float32 scores at B = 4 x
+            # 4928 positions would take 12 GB at once
+            return torch.cat([flash_attention_bshd_ref(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], **kw)
+                for i in range(q.shape[0])])
+
+        self.swaps = [(blocks, "flash_attention_bshd", flash_plain),
                       (ssd, "ssd_scan", ssd_plain),
                       (rglru, "rglru_scan", rglru_scan_ref)]
         self.orig = [getattr(m, n) for m, n, _ in self.swaps]
@@ -816,53 +872,95 @@ def kernel_shares_of_prefill(model, batch, names):
             / total for n in names}, total / 1e3
 
 
-def decode_vs_prefill(model, tokens):
+def lm_batch(cfg, batch, seq, seed, device="cuda"):
+    """``make_lm_batch`` with what the family's prefill takes beside the
+    tokens: the frontend's embeddings (vlm) or the encoder's frames
+    (audio), as the reference's serve launcher makes them."""
+    from repro_torch.data.pipeline import make_lm_batch
+
+    return make_lm_batch(
+        cfg.vocab_size, batch, seq, seed=seed, d_model=cfg.d_model,
+        frontend_tokens=(cfg.frontend.num_tokens
+                         if cfg.family == "vlm" else 0),
+        encoder_len=(cfg.encoder_seq_len if cfg.family == "audio" else 0),
+        device=device)
+
+
+def cache_len(batch) -> int:
+    """Positions a prefill of ``batch`` fills: the tokens, after the
+    frontend's embeddings for a vlm."""
+    front = batch.get("frontend_embeds")
+    return batch["tokens"].shape[1] + (0 if front is None
+                                       else front.shape[1])
+
+
+def decode_vs_prefill(model, batch):
     """(logits of a full prefill of all S + 1 tokens, logits of a prefill
-    of the first S then one decode step at position S). The split prompt
-    of S = 2048 tokens keeps recurrentgemma's window cache full (a
-    shorter one rolls too early: ROADMAP Queue 3)."""
+    of the first S then one decode step at the next position), with the
+    batch's frontend or encoder embeddings. The split prompt of S = 2048
+    tokens keeps recurrentgemma's window cache full (a shorter one rolls
+    too early: ROADMAP Queue 3). A MoE model runs both at capacity factor
+    ``MOE_CHECK_CAPACITY`` (a copy of its config, the same weights)."""
     from repro_torch.serving import pad_cache
 
-    B, S1 = tokens.shape
-    full, _ = model.prefill({"tokens": tokens})
-    _, cache = model.prefill({"tokens": tokens[:, :-1]})
-    cache = pad_cache(model, cache, 1, B, S1 - 1)
-    dec, _ = model.decode_step(cache, tokens[:, -1:], S1 - 1)
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    T = cache_len(batch) - 1
+    if cfg.moe is not None:
+        model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_CHECK_CAPACITY))
+    try:
+        full, _ = model.prefill(batch)
+        _, cache = model.prefill(dict(batch, tokens=tokens[:, :-1]))
+        cache = pad_cache(model, cache, 1, tokens.shape[0], T)
+        dec, _ = model.decode_step(cache, tokens[:, -1:], T)
+    finally:
+        model.cfg = cfg
     return full, dec
 
 
-def phase_serve(arch, kernel_mods):
-    """Serve ``arch`` at full width and depth in bfloat16 (module doc).
-    ``kernel_mods``: {kernel name: wrapper module}; the counts of the
-    kernels of this path are set to 0 just before its counted run and read
-    just after."""
-    import gc
-
+def serve_config(arch):
+    """The served config: the registered one with the spec's cuts."""
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import make_lm_batch
+
+    return dataclasses.replace(get_config(arch), **SERVES[arch].get("cut",
+                                                                    {}))
+
+
+def phase_serve(arch, kernel_mods):
+    """Serve ``arch`` at full width in bfloat16, at full depth unless its
+    spec cuts it (module doc). ``kernel_mods``: {kernel name: wrapper
+    module}; the counts of the kernels of this path are set to 0 just
+    before its counted run and read just after."""
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine, pad_cache
     from repro_torch.serving.scheduler import ContinuousBatcher
 
     spec = SERVES[arch]
+    prompt = spec.get("prompt", SERVE_PROMPT)
     t0 = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = serve_config(arch)
     model = build_model(cfg).init(seed=0)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    batch = make_lm_batch(cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, seed=0)
+    batch = lm_batch(cfg, SERVE_BATCH, prompt, seed=0)
     # warm-up outside the counted run: cuBLAS handles, allocator
-    _, c = model.prefill({"tokens": batch["tokens"][:1, :64]})
-    model.decode_step(pad_cache(model, c, 1, 1, 64),
-                      batch["tokens"][:1, :1], 64)
+    warm = {k: v[:1, :64] if k != "encoder_embeds" else v[:1]
+            for k, v in batch.items()}
+    _, c = model.prefill(warm)
+    model.decode_step(pad_cache(model, c, 1, 1, cache_len(warm)),
+                      warm["tokens"][:, :1], cache_len(warm))
+    del c
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
     # --- the main-path run: counts from 0 just before, read just after ---
-    reqs = batcher_requests(cfg.vocab_size, spec["prompts"])
+    reqs = batcher_requests(cfg.vocab_size, spec["prompts"]) \
+        if spec["prompts"] else []
     torch.cuda.reset_peak_memory_stats()
     for mod in kernel_mods.values():
         mod.reset_launches()
+    steps, bat_s = 0, None
     with PrefillTally(model) as tally:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -870,16 +968,17 @@ def phase_serve(arch, kernel_mods):
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t1
         gen_prefill_s = tally.seconds
-        batcher = ContinuousBatcher(model, slots=BATCHER_SLOTS,
-                                    max_len=spec["max_len"])
-        for r in reqs:
-            batcher.submit(r)
-        steps = 0
-        t2 = time.perf_counter()
-        while batcher.step():
-            steps += 1
-        torch.cuda.synchronize()
-        bat_s = time.perf_counter() - t2
+        if reqs:
+            batcher = ContinuousBatcher(model, slots=BATCHER_SLOTS,
+                                        max_len=spec["max_len"])
+            for r in reqs:
+                batcher.submit(r)
+            t2 = time.perf_counter()
+            while batcher.step():
+                steps += 1
+            torch.cuda.synchronize()
+            bat_s = time.perf_counter() - t2
+            del batcher
     launches = {n: mod.launches for n, mod in kernel_mods.items()}
     peak = torch.cuda.max_memory_allocated()
 
@@ -900,37 +999,49 @@ def phase_serve(arch, kernel_mods):
 
     # --- checks against the plain versions and prefill (not counted) ---
     logits_k, _ = model.prefill(batch)
-    with PlainKernels():
-        logits_p, _ = model.prefill(batch)
-    kernel_vs_plain = rel_err(logits_k, logits_p)
-    chk = make_lm_batch(cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT + 1,
-                        seed=2)["tokens"]
+    kernel_vs_plain = None
+    if spec["per_prefill"]:
+        with PlainKernels():
+            logits_p, _ = model.prefill(batch)
+        kernel_vs_plain = rel_err(logits_k, logits_p)
+        check(bool(torch.isfinite(logits_p).all()), "bad plain logits")
+        del logits_p
+    chk = lm_batch(cfg, SERVE_BATCH, prompt + 1, seed=2)
     logits_f, logits_d = decode_vs_prefill(model, chk)
     dec_vs_pre = rel_err(logits_d, logits_f)
-    for name, lg in (("kernel", logits_k), ("plain", logits_p),
-                     ("prefill", logits_f), ("decode", logits_d)):
+    for name, lg in (("kernel", logits_k), ("prefill", logits_f),
+                     ("decode", logits_d)):
         check(bool(torch.isfinite(lg).all()) and tuple(lg.shape) ==
               (SERVE_BATCH, cfg.vocab_size), f"bad {name} logits")
     shares, prefill_device_ms = kernel_shares_of_prefill(
         model, batch, list(spec["per_prefill"]))
+    n_front = cache_len(batch) - prompt
     out = {"phase": "serve", "arch": arch, "dtype": cfg.dtype,
-           "layers": cfg.num_layers, "params": int(sum(
+           "layers": cfg.num_layers,
+           "encoder_layers": cfg.num_encoder_layers,
+           "cut": spec.get("cut"), "params": int(sum(
                p.numel() for p in model.parameters())),
            "weight_bytes": weight_bytes, "peak_memory_bytes": peak,
-           "generate": {"batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+           "generate": {"batch": SERVE_BATCH, "prompt": prompt,
+                        "frontend_positions": n_front,
+                        "encoder_frames": cfg.encoder_seq_len
+                        if "encoder_embeds" in batch else 0,
                         "new_tokens": SERVE_NEW, "seconds": gen_s,
                         "prefill_s": gen_prefill_s,
                         "prefill_tokens_per_s":
-                            SERVE_BATCH * SERVE_PROMPT / gen_prefill_s,
+                            SERVE_BATCH * prompt / gen_prefill_s,
+                        "prefill_positions_per_s":
+                            SERVE_BATCH * (prompt + n_front) / gen_prefill_s,
                         "decode_steps": SERVE_NEW,
                         "decode_ms_per_step": decode_s / SERVE_NEW * 1e3,
                         "decode_tokens_per_s":
                             SERVE_BATCH * SERVE_NEW / decode_s},
-           "batcher": {"slots": BATCHER_SLOTS, "requests": len(reqs),
-                       "prompts": list(spec["prompts"]),
-                       "budgets": list(BATCHER_BUDGETS), "steps": steps,
-                       "seconds": bat_s,
-                       "tokens_out": sum(len(r.out) for r in reqs)},
+           "batcher": None if not reqs else {
+               "slots": BATCHER_SLOTS, "requests": len(reqs),
+               "prompts": list(spec["prompts"]),
+               "budgets": list(BATCHER_BUDGETS), "steps": steps,
+               "seconds": bat_s, "tokens_out": sum(len(r.out)
+                                                   for r in reqs)},
            "prefill_calls": tally.calls, "prefill_tokens": tally.tokens,
            "prefill_seconds": tally.seconds,
            "launches": launches,
@@ -938,15 +1049,18 @@ def phase_serve(arch, kernel_mods):
            "prefill_device_ms": prefill_device_ms,
            "kernel_vs_plain_logit_rel_err": kernel_vs_plain,
            "decode_vs_prefill_logit_rel_err": dec_vs_pre,
+           "moe_check_capacity": MOE_CHECK_CAPACITY
+           if cfg.moe is not None else None,
            "logit_rtol": spec["logit_rtol"], "setup_s": setup_s,
            "seconds": time.perf_counter() - t0}
     emit(out)
-    check(kernel_vs_plain <= spec["logit_rtol"], f"{arch}: kernels vs "
-          f"plain prefill logits: rel err {kernel_vs_plain} > "
-          f"{spec['logit_rtol']}")
+    if kernel_vs_plain is not None:
+        check(kernel_vs_plain <= spec["logit_rtol"], f"{arch}: kernels vs "
+              f"plain prefill logits: rel err {kernel_vs_plain} > "
+              f"{spec['logit_rtol']}")
     check(dec_vs_pre <= spec["logit_rtol"], f"{arch}: decode vs prefill "
           f"logits: rel err {dec_vs_pre} > {spec['logit_rtol']}")
-    del model, batcher, batch, logits_k, logits_p, logits_f, logits_d
+    del model, batch, chk, logits_k, logits_f, logits_d
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -956,12 +1070,11 @@ def reduced_card_vs_cpu(arch, seed=0, num_layers=None):
     """A reduced config (``num_layers`` overriding its depth) in float32:
     (max relative logit error of prefill, of a scalar-position decode, of
     a per-sequence decode), the port on the card against the port on the
-    CPU, same weights."""
+    CPU, same weights and inputs (with the family's frontend or encoder
+    embeddings)."""
     import copy
-    import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.models import build_model
     from repro_torch.serving import pad_cache
 
@@ -970,14 +1083,15 @@ def reduced_card_vs_cpu(arch, seed=0, num_layers=None):
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
     cpu = build_model(cfg, device="cpu").init(seed=seed)
     card = copy.deepcopy(cpu).to("cuda")
-    toks = make_lm_batch(cfg.vocab_size, 2, 64, seed=3, device="cpu")
+    batch = lm_batch(cfg, 2, 64, seed=3, device="cpu")
+    T = cache_len(batch)
     errs = []
     caches = {}
     for m, dev in ((cpu, "cpu"), (card, "cuda")):
-        lg, cache = m.prefill({"tokens": toks["tokens"].to(dev)})
-        caches[dev] = (lg, pad_cache(m, cache, 4, 2, 64))
+        lg, cache = m.prefill({k: v.to(dev) for k, v in batch.items()})
+        caches[dev] = (lg, pad_cache(m, cache, 4, 2, T))
     errs.append(rel_err(caches["cuda"][0].cpu(), caches["cpu"][0]))
-    for pos in (torch.tensor(64), torch.tensor([64, 61])):
+    for pos in (torch.tensor(T), torch.tensor([T, T - 3])):
         lgs = {}
         for m, dev in ((cpu, "cpu"), (card, "cuda")):
             cache = {k: v.clone() for k, v in caches[dev][1].items()}
@@ -1743,13 +1857,13 @@ def main() -> int:
     check(not unchecked, f"loo_trials launched at shapes that phases 3 "
                          f"and 3b do not check: {unchecked}")
 
-    # 9.-11. serving, one model at a time: the counted main paths of
+    # 9.-16. serving, one model at a time: the counted main paths of
     # flash_attention, ssd_scan and rglru_scan
     served = {arch: phase_serve(arch, {n: mods[n] for n in
                                        SERVES[arch]["per_prefill"]})
               for arch in SERVES}
 
-    # 12. the reduced configs, card against CPU
+    # 17. the reduced configs, card against CPU
     phase_reduced()
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
@@ -1791,8 +1905,11 @@ def main() -> int:
         dict(line("loo_trials_step", step_head, step_worst,
                   main_run["loo_trials_step_launches"], source="loo_trials"),
              launches_by_path=by_path("loo_trials_step_launches")),
-        line("flash_attention", fhead, flash_worst,
-             served_launches("flash_attention"), fhead["library_us"]),
+        dict(line("flash_attention", fhead, flash_worst,
+                  served_launches("flash_attention"), fhead["library_us"]),
+             launches_by_path={arch: out["launches"]["flash_attention"]
+                               for arch, out in served.items()
+                               if "flash_attention" in out["launches"]}),
         line("ssd_scan", ssd_rows[0],
              max(r["max_abs_err"] for r in ssd_rows),
              served_launches("ssd_scan")),

@@ -4,17 +4,22 @@ bounds that ``chip_smoke.py``'s serve phases hold the kernels and decode
 to.
 
     python scripts/torch_serve_numerics.py [--arch llama3.2-3b]
-        [--batch 4] [--prompt 2048]
+        [--batch 4] [--prompt N]
 
-The model (``--arch``: llama3.2-3b, mamba2-1.3b or recurrentgemma-9b) at
-full width and depth, weights from the port's seeded initialiser in
-bfloat16, and a float32 twin holding the same values. For each dtype it
-computes prefill logits with the kernels and with their plain versions
-swapped in, and the logits of a prefill of ``prompt + 1`` tokens against
-a prefill of the first ``prompt`` and one decode step; it prints one JSON
-line of relative logit errors (max |a - b| / max |b|, as
-``tests/test_decode_equivalence.py``'s ``_err``) between them. Needs a
-CUDA device; imports neither JAX nor ``repro``.
+The model (``--arch``: any arch that ``chip_smoke.py`` serves) at full
+width, at the depth ``chip_smoke.py`` serves it (``SERVES[arch]["cut"]``),
+weights from the port's seeded initialiser in bfloat16, and a float32
+twin holding the same values (built after the bfloat16 model's weights
+have moved to the host, so that both never share the card). For each
+dtype it computes prefill logits with the kernels and with their plain
+versions swapped in, and the logits of a prefill of ``prompt + 1`` tokens
+against a prefill of the first ``prompt`` and one decode step (with the
+frontend or encoder embeddings the family takes; a MoE at
+``chip_smoke.MOE_CHECK_CAPACITY``); it prints one JSON line of relative
+logit errors (max |a - b| / max |b|, as
+``tests/test_decode_equivalence.py``'s ``_err``) between them. The
+default prompt is the one ``chip_smoke.py`` serves. Needs a CUDA device;
+imports neither JAX nor ``repro``.
 """
 import argparse
 import json
@@ -46,32 +51,35 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="llama3.2-3b")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt", type=int, default=2048)
+    ap.add_argument("--prompt", type=int, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_serve_numerics: needs a CUDA device")
 
-    from chip_smoke import rel_err
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import make_lm_batch
+    from chip_smoke import (SERVE_PROMPT, SERVES, lm_batch, rel_err,
+                            serve_config)
     from repro_torch.models import build_model
 
-    cfg = get_config(args.arch)
+    cfg = serve_config(args.arch)
+    prompt = args.prompt or SERVES[args.arch].get("prompt", SERVE_PROMPT)
+    batch = lm_batch(cfg, args.batch, prompt, seed=0)
+    chk = lm_batch(cfg, args.batch, prompt + 1, seed=2)
     m16 = build_model(cfg).init(seed=0)
-    batch = make_lm_batch(cfg.vocab_size, args.batch, args.prompt, seed=0)
-    chk = make_lm_batch(cfg.vocab_size, args.batch, args.prompt + 1,
-                        seed=2)["tokens"]
     k16, p16, f16, d16 = logits(m16, batch, chk)
-    m32 = build_model(cfg, dtype=torch.float32)
-    m32.load_state_dict(m16.state_dict())          # casts bf16 -> f32
+    state = {k: v.cpu() for k, v in m16.state_dict().items()}
     del m16
+    torch.cuda.empty_cache()
+    m32 = build_model(cfg, dtype=torch.float32)
+    m32.load_state_dict(state)                     # casts bf16 -> f32
+    del state
     k32, p32, f32, d32 = logits(m32, batch, chk)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(json.dumps({
-        "arch": args.arch, "batch": args.batch, "prompt": args.prompt,
-        "nvidia_smi": smi, "max_abs_logit_f32": float(p32.abs().max()),
+        "arch": args.arch, "layers": cfg.num_layers, "batch": args.batch,
+        "prompt": prompt, "nvidia_smi": smi,
+        "max_abs_logit_f32": float(p32.abs().max()),
         "bf16_kernel_vs_bf16_plain": rel_err(k16, p16),
         "bf16_kernel_vs_f32_plain": rel_err(k16, p32),
         "bf16_plain_vs_f32_plain": rel_err(p16, p32),

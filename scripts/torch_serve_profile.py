@@ -1,7 +1,9 @@
 #!/usr/bin/env python
 """Where the PyTorch port's serving time goes on the GPU: a model
-(``--arch``: llama3.2-3b, mamba2-1.3b or recurrentgemma-9b) at full width
-and depth, bfloat16, random weights from the port's seeded initialiser.
+(``--arch``: any arch that ``chip_smoke.py`` serves) at full width and at
+the depth ``chip_smoke.py`` serves it, bfloat16, random weights from the
+port's seeded initialiser, with the frontend or encoder embeddings its
+family takes.
 
     python scripts/torch_serve_profile.py [--arch llama3.2-3b] [--batch 4]
         [--prompt 2048] [--steps 16] [--trace serve_trace.json]
@@ -25,6 +27,7 @@ from collections import defaultdict
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
@@ -72,15 +75,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_serve_profile: needs a CUDA device")
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import make_lm_batch
+    from chip_smoke import cache_len, lm_batch, serve_config
     from repro_torch.models import build_model
     from repro_torch.serving import pad_cache
 
-    cfg = get_config(args.arch)
+    cfg = serve_config(args.arch)
     model = build_model(cfg).init(seed=0)
-    batch = make_lm_batch(cfg.vocab_size, args.batch, args.prompt, seed=0)
-    B, S = batch["tokens"].shape
+    batch = lm_batch(cfg, args.batch, args.prompt, seed=0)
+    B, S = batch["tokens"].shape[0], cache_len(batch)
     state = {}
 
     def prefill():
@@ -112,7 +114,8 @@ def main() -> None:
     for name, fn in phases:
         wall_prof, kernels, prof = profiled(fn)
         out = summary(name, walls[name], wall_prof, kernels)
-        out.update({"arch": args.arch, "batch": B, "prompt": S,
+        out.update({"arch": args.arch, "batch": B, "prompt": args.prompt,
+                    "positions": S,
                     "steps": args.steps if name == "decode" else 0,
                     "device": torch.cuda.get_device_name(0),
                     "nvidia_smi": smi})

@@ -11,9 +11,7 @@ attention path is chosen by the tensors' device (a CUDA tensor runs the
 hand-written kernels, a CPU tensor their plain PyTorch versions; see
 ``repro_torch.kernels``). The same holds for the SSD and RG-LRU scans.
 
-Only the ported families are registered (``repro_torch.configs``);
-:func:`get_config` of any other architecture of the reference raises
-:class:`NotImplementedError` naming the ROADMAP item that will port it.
+Every architecture of the reference is registered (``repro_torch.configs``).
 """
 from __future__ import annotations
 
@@ -348,16 +346,6 @@ class TrainConfig:
 
 _REGISTRY: dict = {}
 
-# Architectures of the reference that the port does not run yet, with the
-# ROADMAP item (Queue 1) that brings each one over.
-NOT_PORTED = {
-    "minicpm3-4b": "Queue 1 item 9d (MLA attention)",
-    "deepseek-v3-671b": "Queue 1 item 9d (MLA attention, MoE)",
-    "olmoe-1b-7b": "Queue 1 item 9d (MoE)",
-    "llava-next-mistral-7b": "Queue 1 item 9d (vlm frontend)",
-    "whisper-medium": "Queue 1 item 9d (audio encoder-decoder)",
-}
-
 
 def register(cfg: ModelConfig) -> ModelConfig:
     _REGISTRY[cfg.name] = cfg
@@ -368,9 +356,6 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         # import all config modules lazily
         from repro_torch.configs import ALL_ARCHS  # noqa: F401
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"arch {name!r} is not ported yet: "
-                                  f"ROADMAP {NOT_PORTED[name]}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]

@@ -38,8 +38,12 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
     model = build_model(cfg, device=dev).init(seed=0)
-    batch = make_lm_batch(cfg.vocab_size, 2, 32, d_model=cfg.d_model,
-                          device=dev)
+    batch = make_lm_batch(
+        cfg.vocab_size, 2, 32, d_model=cfg.d_model,
+        frontend_tokens=(cfg.frontend.num_tokens
+                         if cfg.family == "vlm" else 0),
+        encoder_len=(cfg.encoder_seq_len if cfg.family == "audio" else 0),
+        device=dev)
     out = ServeEngine(model, max_new_tokens=8).generate(batch)
     print("generated:", out.tolist())
     return out

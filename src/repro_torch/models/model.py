@@ -1,5 +1,9 @@
-"""Model assembly of the ``dense``, ``ssm`` and ``hybrid`` families (port
-of ``repro.models.model``).
+"""Model assembly of every family of the reference (port of
+``repro.models.model``): ``dense`` (GQA or MLA attention), ``moe`` (MoE
+FFN, dense-first layers, MLA), ``ssm`` (Mamba-2), ``hybrid``
+(RecurrentGemma), ``vlm`` (a dense decoder after precomputed frontend
+embeddings) and ``audio`` (a Whisper-style encoder and a decoder with
+cross-attention).
 
 One :class:`Model` (an ``nn.Module``) wraps a :class:`ModelConfig` and
 holds its parameters, in the reference's layouts:
@@ -12,23 +16,22 @@ holds its parameters, in the reference's layouts:
 * ``cache_template``    — ParamSpec tree for the serve cache
 
 Layers are ``ModuleList``s walked in a Python loop (the reference's
-``lax.scan`` over stacked layers): ``layers`` (dense, ssm), or ``periods``
-of ``{rec1, rec2, att}`` and a ``tail`` of RG-LRU sublayers (hybrid);
-``load_params`` splits a stacked ``layers/...``, ``periods/...`` or
-``tail/...`` leaf of shape (L, ...) across them. Parameters live
-on the model's device in the config's dtype (bfloat16 at full size) and
-take no gradients: the port serves, training is a later slice
-(``loss_fn`` waits for ROADMAP Queue 1 item 9d).
+``lax.scan`` over stacked layers): ``layers`` (and ``layers_dense`` before
+them in the moe family, ``enc_layers`` for the audio encoder), or
+``periods`` of ``{rec1, rec2, att}`` and a ``tail`` of RG-LRU sublayers
+(hybrid); ``load_params`` splits a stacked leaf of shape (L, ...) across
+them. The moe family's ``mtp`` group (DeepSeek's multi-token prediction)
+is loaded and never used by serving, and the MoE aux loss is dropped.
+Parameters live on the model's device in the config's dtype (bfloat16 at
+full size) and take no gradients: the port serves, and training
+(``loss_fn``, the optimiser, the HTL trainer) waits for ROADMAP Queue 1
+item 9d.
 
 The decode cache is updated in place: ``decode_step`` writes the new K/V
-entries into the buffers it is given (or rolls a window cache in place),
-overwrites the SSM / RG-LRU states and conv windows, and returns them.
-The reference returns new arrays; in place saves a copy of the whole
-cache per step.
-
-Ported: ``dense`` without MLA or MoE, ``ssm`` (Mamba-2) and ``hybrid``
-(RecurrentGemma); any other config raises :class:`NotImplementedError`
-naming its ROADMAP item.
+or MLA latent entries into the buffers it is given (or rolls a window
+cache in place), overwrites the SSM / RG-LRU states and conv windows, and
+returns them. The reference returns new arrays; in place saves a copy of
+the whole cache per step.
 """
 from __future__ import annotations
 
@@ -38,11 +41,12 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import NOT_PORTED, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, rglru, ssd
 from repro_torch.models.blocks import (
-    chunked_attention, gqa_attention, gqa_template, mlp, mlp_template,
-    out_proj, rmsnorm,
+    _proj_heads, chunked_attention, cross_attention, gqa_attention,
+    gqa_template, mla_attention, mla_template, mlp, mlp_template, moe_ffn,
+    moe_template, out_proj, rmsnorm,
 )
 from repro_torch.sharding.partitioning import (
     ParamModule, ParamSpec, flatten, iter_init, torch_dtype,
@@ -61,10 +65,26 @@ def _norm_spec(d):
     return ParamSpec((d,), (None,), "ones")
 
 
-def _attn_block_template(cfg: ModelConfig) -> dict:
+def _attn_block_template(cfg: ModelConfig, ffn: str = "mlp") -> dict:
     d = cfg.d_model
-    return {"ln1": _norm_spec(d), "ln2": _norm_spec(d),
-            "attn": gqa_template(cfg), "mlp": mlp_template(d, cfg.d_ff)}
+    t = {"ln1": _norm_spec(d), "ln2": _norm_spec(d)}
+    t["attn"] = mla_template(cfg) if cfg.mla is not None else gqa_template(cfg)
+    if ffn == "mlp":
+        t["mlp"] = mlp_template(d, cfg.d_ff)
+    elif ffn == "moe":
+        t["moe"] = moe_template(cfg)
+    elif ffn == "dense_first":
+        t["mlp"] = mlp_template(d, cfg.moe.dense_d_ff or cfg.d_ff)
+    return t
+
+
+def _encdec_dec_block_template(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "ln1": _norm_spec(d), "attn": gqa_template(cfg),
+        "lnx": _norm_spec(d), "xattn": gqa_template(cfg),
+        "ln2": _norm_spec(d), "mlp": mlp_template(d, cfg.d_ff),
+    }
 
 
 def _ssm_block_template(cfg: ModelConfig) -> dict:
@@ -84,37 +104,75 @@ def _hybrid_period(cfg: ModelConfig) -> dict:
             "att": _hybrid_sublayer(cfg, "attn")}
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.mla is None and cfg.moe is None and cfg.family in (
-            "dense", "ssm", "hybrid"):
-        return
-    item = NOT_PORTED.get(cfg.name, "Queue 1 item 9 (LM families)")
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r}"
-        f"{' with MLA' if cfg.mla is not None else ''} is not ported yet: "
-        f"ROADMAP {item}")
-
-
 # ---------------------------------------------------------------------------
 # Block forward functions
 # ---------------------------------------------------------------------------
 
+def _ffn(p, x, cfg: ModelConfig):
+    """The block's MLP or MoE FFN (the MoE aux loss is dropped: serving).
+    The reference's ``expert_parallel="shard_map"`` selects
+    ``moe_ffn_shard_map``, which is :func:`moe_ffn` without a mesh."""
+    if "moe" not in p:
+        return mlp(p["mlp"], x)
+    return moe_ffn(p["moe"], x, cfg)[0]
+
+
 def _attn_block(p, h, cfg: ModelConfig):
+    """One attention block over the full sequence. Returns (h, cache
+    entries): (ckv,) for MLA, (k, v) for GQA."""
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
-    a, cache = gqa_attention(p["attn"], x, cfg)
+    if cfg.mla is not None:
+        a, ckv = mla_attention(p["attn"], x, cfg)
+        cache = (ckv,)
+    else:
+        a, cache = gqa_attention(p["attn"], x, cfg)
     h = h + a
     x2 = rmsnorm(h, p["ln2"], cfg.norm_eps)
-    return h + mlp(p["mlp"], x2), cache
+    return h + _ffn(p, x2, cfg), cache
 
 
 def _attn_block_decode(p, h, cfg: ModelConfig, cache_slice, pos, *,
                        window_cache=False):
     """One layer of one decode step; writes the layer's cache in place."""
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
-    decode = _gqa_decode_window if window_cache else _gqa_decode_buffered
-    h = h + decode(p["attn"], x, cache_slice["k"], cache_slice["v"], cfg, pos)
+    if cfg.mla is not None:
+        h = h + _mla_decode_buffered(p["attn"], x, cache_slice["ckv"], pos,
+                                     cfg)
+    else:
+        decode = _gqa_decode_window if window_cache else _gqa_decode_buffered
+        h = h + decode(p["attn"], x, cache_slice["k"], cache_slice["v"], cfg,
+                       pos)
     x2 = rmsnorm(h, p["ln2"], cfg.norm_eps)
-    return h + mlp(p["mlp"], x2)
+    return h + _ffn(p, x2, cfg)
+
+
+def _encdec_block(p, h, enc_out, cfg: ModelConfig):
+    """One decoder block of the audio family over the full sequence:
+    causal self-attention, cross-attention to the encoder output, MLP.
+    Returns (h, (k, v, xk, xv))."""
+    x = rmsnorm(h, p["ln1"], cfg.norm_eps)
+    a, (k, v) = gqa_attention(p["attn"], x, cfg)
+    h = h + a
+    xq = rmsnorm(h, p["lnx"], cfg.norm_eps)
+    ek = _proj_heads(enc_out, p["xattn"]["wk"])
+    ev = _proj_heads(enc_out, p["xattn"]["wv"])
+    if cfg.qkv_bias:
+        ek = ek + p["xattn"]["bk"]
+        ev = ev + p["xattn"]["bv"]
+    h = h + cross_attention(p["xattn"], xq, (ek, ev), cfg)
+    h = h + mlp(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps))
+    return h, (k, v, ek, ev)
+
+
+def _encdec_block_decode(p, h, cfg: ModelConfig, st, pos):
+    """One decoder block of one audio decode step against its caches
+    ``st`` = (k, v, xk, xv); writes k and v in place."""
+    ck, cv, xk, xv = st
+    x = rmsnorm(h, p["ln1"], cfg.norm_eps)
+    h = h + _gqa_decode_buffered(p["attn"], x, ck, cv, cfg, pos)
+    xq = rmsnorm(h, p["lnx"], cfg.norm_eps)
+    h = h + cross_attention(p["xattn"], xq, (xk, xv), cfg)
+    return h + mlp(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps))
 
 
 def _write_at(c, new, pos):
@@ -145,6 +203,17 @@ def _gqa_decode_buffered(p, x, ck, cv, cfg, pos):
     out = chunked_attention(q, k, v, causal=True, window=cfg.sliding_window,
                             q_offset=pos)
     return out_proj(out, p["wo"])
+
+
+def _mla_decode_buffered(p, x, cache, pos, cfg):
+    """MLA absorbed decode against a fixed-size latent buffer: write the
+    new entry at ``pos`` (in place), mask entries beyond each sequence's
+    position."""
+    posb = _positions(pos, x.shape[0])
+    q_nope, q_rope = blocks._mla_q(p, x, cfg.mla, cfg, posb)
+    cache = _write_at(cache, blocks.mla_new_entry(p, x, cfg, posb), pos)
+    valid = torch.arange(cache.shape[1], device=x.device)[None, :] <= posb
+    return blocks.mla_absorbed(p, q_nope, q_rope, cache, cfg, valid)
 
 
 def _gqa_decode_window(p, x, ck, cv, cfg, pos):
@@ -195,6 +264,7 @@ _PERIOD_CACHE = (("rec1", "rglru", ("rec1_h", "rec1_conv")),
                  ("rec2", "rglru", ("rec2_h", "rec2_conv")),
                  ("att", "attn", ("att_k", "att_v")))
 _TAIL_CACHE = ("tail_h", "tail_conv")
+_ENCDEC_CACHE = ("k", "v", "xk", "xv")
 
 
 # ---------------------------------------------------------------------------
@@ -202,48 +272,63 @@ _TAIL_CACHE = ("tail_h", "tail_conv")
 # ---------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """A decoder of a ported family on ``device`` (default ``"cuda"``:
-    raises without CUDA unless the CPU, or ``"meta"`` for shapes only, is
-    asked for). Parameters are allocated uninitialised; call :meth:`init`
-    or :meth:`load_params`."""
+    """A model of any family on ``device`` (default ``"cuda"``: raises
+    without CUDA unless the CPU, or ``"meta"`` for shapes only, is asked
+    for). Parameters are allocated uninitialised; call :meth:`init` or
+    :meth:`load_params`."""
 
-    STACKED = ("layers", "periods", "tail")
+    STACKED = ("layers_dense", "layers", "enc_layers", "periods", "tail")
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", dtype=None):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         self.dtype = torch_dtype(dtype or cfg.dtype)
         top = {k: v for k, v in self.template().items()
                if k not in self.STACKED}
         self.top = ParamModule(top, dev, self.dtype)
-
-        def stack(template, n):
-            return nn.ModuleList(ParamModule(template, dev, self.dtype)
-                                 for _ in range(n))
-
-        if cfg.family == "hybrid":
-            n_per, n_tail = self._hybrid_counts()
-            self.periods = stack(_hybrid_period(cfg), n_per)
-            self.tail = stack(_hybrid_sublayer(cfg, "rglru"), n_tail)
-        else:
-            self.layers = stack(self._block_template(), cfg.num_layers)
+        stacks = self._stacks()
+        for name in self.STACKED:
+            template, n = stacks.get(name, (None, 0))
+            setattr(self, name, nn.ModuleList(
+                ParamModule(template, dev, self.dtype) for _ in range(n)))
 
     @property
     def device(self) -> torch.device:
         return self.top["embed"].device
 
     # ------------------------------------------------------------- templates
-    def _block_template(self) -> dict:
-        if self.cfg.family == "ssm":
-            return _ssm_block_template(self.cfg)
-        return _attn_block_template(self.cfg)
-
     def _hybrid_counts(self):
         L = self.cfg.num_layers
         period = len(self.cfg.rglru.pattern)
         return L // period, L % period
+
+    def _stacks(self) -> dict:
+        """{stacked group: (one layer's template, number of layers)}."""
+        cfg = self.cfg
+        fam, L = cfg.family, cfg.num_layers
+        if fam in ("dense", "vlm"):
+            return {"layers": (_attn_block_template(cfg), L)}
+        if fam == "moe":
+            fk = cfg.moe.first_k_dense
+            out = {"layers": (_attn_block_template(cfg, "moe"), L - fk)}
+            if fk:
+                out["layers_dense"] = (
+                    _attn_block_template(cfg, "dense_first"), fk)
+            return out
+        if fam == "ssm":
+            return {"layers": (_ssm_block_template(cfg), L)}
+        if fam == "hybrid":
+            n_per, n_tail = self._hybrid_counts()
+            out = {"periods": (_hybrid_period(cfg), n_per)}
+            if n_tail:
+                out["tail"] = (_hybrid_sublayer(cfg, "rglru"), n_tail)
+            return out
+        if fam == "audio":
+            return {"enc_layers": (_attn_block_template(cfg),
+                                   cfg.num_encoder_layers),
+                    "layers": (_encdec_dec_block_template(cfg), L)}
+        raise ValueError(fam)
 
     def template(self) -> dict:
         cfg = self.cfg
@@ -254,20 +339,28 @@ class Model(nn.Module):
         }
         if not cfg.tie_embeddings:
             t["lm_head"] = ParamSpec((d, v), ("embed", "vocab"))
-        if cfg.family == "hybrid":
-            n_per, n_tail = self._hybrid_counts()
-            t["periods"] = _stack(_hybrid_period(cfg), n_per)
-            if n_tail:
-                t["tail"] = _stack(_hybrid_sublayer(cfg, "rglru"), n_tail)
-        else:
-            t["layers"] = _stack(self._block_template(), cfg.num_layers)
+        for name, (template, n) in self._stacks().items():
+            t[name] = _stack(template, n)
+        if cfg.family == "moe" and cfg.num_mtp_modules:
+            t["mtp"] = {
+                "proj": ParamSpec((2 * d, d), ("embed", None)),
+                "norm_h": _norm_spec(d), "norm_e": _norm_spec(d),
+                "block": _attn_block_template(cfg, "moe"),
+                "final_norm": _norm_spec(d),
+            }
+        if cfg.family == "audio":
+            t["enc_norm"] = _norm_spec(d)
         return t
+
+    def _attn_layers(self):
+        """The attention blocks of the dense, vlm and moe families in
+        order: the dense-first layers, then the rest."""
+        return list(self.layers_dense) + list(self.layers)
 
     # ------------------------------------------------------------ parameters
     def _targets(self, path: str):
         """The parameter(s) a reference leaf path maps onto: one tensor, or
-        one per layer for a stacked ``layers/``, ``periods/`` or ``tail/``
-        leaf."""
+        one per layer for a stacked leaf (``layers/``, ``periods/``, ...)."""
         head, _, sub = path.partition("/")
         if head in self.STACKED:
             return [layer.leaf(sub) for layer in getattr(self, head)]
@@ -328,10 +421,10 @@ class Model(nn.Module):
         return h @ self.top["lm_head"]
 
     # ---------------------------------------------------------- trunk passes
-    def _trunk(self, h, *, collect_cache=False):
-        """Full-sequence pass over all layers. Returns (h, caches): per
-        cache leaf name, the list of per-layer entries (empty unless
-        ``collect_cache``)."""
+    def _trunk(self, h, *, collect_cache=False, enc_out=None):
+        """Full-sequence pass over all layers (the audio decoder attends
+        to ``enc_out``). Returns (h, caches): per cache leaf name, the list
+        of per-layer entries (empty unless ``collect_cache``)."""
         cfg = self.cfg
         caches: Dict[str, list] = {}
 
@@ -340,10 +433,15 @@ class Model(nn.Module):
                 for name, value in zip(names, values):
                     caches.setdefault(name, []).append(value)
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm", "moe"):
+            names = ("ckv",) if cfg.mla is not None else ("k", "v")
+            for p_l in self._attn_layers():
+                h, entries = _attn_block(p_l, h, cfg)
+                keep(names, entries)
+        elif cfg.family == "audio":
             for p_l in self.layers:
-                h, kv = _attn_block(p_l, h, cfg)
-                keep(("k", "v"), kv)
+                h, entries = _encdec_block(p_l, h, enc_out, cfg)
+                keep(_ENCDEC_CACHE, entries)
         elif cfg.family == "ssm":
             for p_l in self.layers:
                 x = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
@@ -360,29 +458,67 @@ class Model(nn.Module):
                 keep(_TAIL_CACHE, st)
         return h, caches
 
+    def _encode(self, enc_embeds):
+        """The audio encoder over precomputed (stub-frontend) frame
+        embeddings: sinusoidal positions, then non-causal self-attention
+        without RoPE (through the flash kernel) and an MLP per layer."""
+        cfg = self.cfg
+        h = enc_embeds.to(self.dtype)
+        S, d = h.shape[1], h.shape[2]
+        pos = torch.arange(S, device=h.device, dtype=torch.float32)[:, None]
+        dim = torch.arange(0, d, 2, device=h.device,
+                           dtype=torch.float32)[None, :]
+        angle = pos / torch.pow(10000.0, dim / d)
+        pe = torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+        h = h + pe[None].to(self.dtype)
+        for p_l in self.enc_layers:
+            x = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
+            a, _ = gqa_attention(p_l["attn"], x, cfg, causal=False,
+                                 rope=False)
+            h = h + a
+            h = h + mlp(p_l["mlp"], rmsnorm(h, p_l["ln2"], cfg.norm_eps))
+        return rmsnorm(h, self.top["enc_norm"], cfg.norm_eps)
+
+    def loss_fn(self, batch):
+        """The training loss (cross-entropy, MoE aux, MTP): not ported."""
+        raise NotImplementedError(
+            "training (loss_fn, optim/, the HTL trainer, launch/train.py) "
+            "is not ported yet: ROADMAP Queue 1 item 9d")
+
     # --------------------------------------------------------------- serving
     @torch.no_grad()
     def prefill(self, batch):
-        """batch: {"tokens": (B, S) integer tensor on the model's device}.
-        Returns (last_token_logits (B, V), cache)."""
+        """batch: {"tokens": (B, S) integer tensor on the model's device},
+        plus ``frontend_embeds`` (B, F, D) for the vlm family (prepended
+        to the token embeddings) or ``encoder_embeds`` (B, T, D) for the
+        audio family. Returns (last_token_logits (B, V), cache)."""
+        cfg = self.cfg
         tokens = batch["tokens"]
         h = self._embed(tokens)
-        h, caches = self._trunk(h, collect_cache=True)
+        enc_out = None
+        if cfg.family == "audio":
+            enc_out = self._encode(batch["encoder_embeds"])
+        elif cfg.family == "vlm":
+            h = torch.cat([batch["frontend_embeds"].to(self.dtype), h], dim=1)
+        h, caches = self._trunk(h, collect_cache=True, enc_out=enc_out)
         logits = self._head(self._norm(h[:, -1:]))[:, 0]
-        return logits, self._pack_cache(caches, *tokens.shape)
+        return logits, self._pack_cache(caches, tokens.shape[0], h.shape[1])
 
     def _pack_cache(self, caches, batch: int, seq_len: int):
         """Stack the per-layer entries into the reference's cache leaves
-        ((layers, batch, ...)); a hybrid model without periods (or tail)
+        ((layers, batch, ...)); the MLA ``ckv`` holds the dense-first
+        layers, then the rest. A hybrid model without periods (or tail)
         gets the empty leaves of its cache template."""
+        cfg = self.cfg
         tmpl = self.cache_template(batch, seq_len)
         out = {}
         for name, spec in tmpl.items():
             vals = caches.get(name)
             out[name] = torch.stack(vals) if vals else torch.zeros(
                 spec.shape, dtype=self.dtype, device=self.device)
-        if self.cfg.family == "dense" and self.cfg.sliding_window:
-            w = min(self.cfg.sliding_window, out["k"].shape[2])
+        if (cfg.family in ("dense", "vlm", "moe") and cfg.mla is None
+                and cfg.sliding_window):
+            w = min(cfg.sliding_window, out["k"].shape[2])
             out = {k: v[:, :, -w:] for k, v in out.items()}
         return out
 
@@ -398,6 +534,11 @@ class Model(nn.Module):
             return (ParamSpec((nl, B, s, KV, hd), ax, "zeros", None),
                     ParamSpec((nl, B, s, KV, hd), ax, "zeros", None))
 
+        if cfg.mla is not None:
+            width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+            return {"ckv": ParamSpec((L, B, S, width),
+                                     ("layers", "batch", "cache_len", None),
+                                     "zeros", None)}
         if cfg.family == "ssm":
             d_in, nh, P, N = ssd.ssd_dims(cfg)
             ch = d_in + 2 * N
@@ -428,6 +569,9 @@ class Model(nn.Module):
                 out.update(zip(_TAIL_CACHE, rec(n_tail)))
             return out
         k, v = kv(L, S)
+        if cfg.family == "audio":
+            xk, xv = kv(L, cfg.encoder_seq_len)
+            return {"k": k, "v": v, "xk": xk, "xv": xv}
         return {"k": k, "v": v}
 
     @torch.no_grad()
@@ -437,19 +581,25 @@ class Model(nn.Module):
         it, as the reference does).
 
         Returns (logits (B,V), cache): the caches are fixed-size buffers
-        written in place (K/V at ``pos``, window caches rolled, recurrent
-        states and conv windows overwritten) and returned.
+        written in place (K/V or MLA latents at ``pos``, window caches
+        rolled, recurrent states and conv windows overwritten) and
+        returned; the audio family's cross-attention caches are read only.
         """
         cfg = self.cfg
         pos = pos.to(self.device, torch.long) if torch.is_tensor(pos) \
             else torch.full((), int(pos), dtype=torch.long, device=self.device)
         h = self._embed(tokens)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm", "moe"):
             window_cache = bool(cfg.sliding_window)
-            for l, p_l in enumerate(self.layers):
-                c_l = {"k": cache["k"][l], "v": cache["v"][l]}
+            names = ("ckv",) if cfg.mla is not None else ("k", "v")
+            for l, p_l in enumerate(self._attn_layers()):
+                c_l = {n: cache[n][l] for n in names}
                 h = _attn_block_decode(p_l, h, cfg, c_l, pos,
                                        window_cache=window_cache)
+        elif cfg.family == "audio":
+            for l, p_l in enumerate(self.layers):
+                st = tuple(cache[n][l] for n in _ENCDEC_CACHE)
+                h = _encdec_block_decode(p_l, h, cfg, st, pos)
         elif cfg.family == "ssm":
             for l, p_l in enumerate(self.layers):
                 x = rmsnorm(h, p_l["ln1"], cfg.norm_eps)

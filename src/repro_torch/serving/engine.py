@@ -25,14 +25,20 @@ class ServeEngine:
 
     def generate(self, batch: dict, *, temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None):
-        """batch: {"tokens": (B, S) on the model's device}.
+        """batch: {"tokens": (B, S) on the model's device}, plus the
+        frontend or encoder embeddings the model's family takes (see
+        ``Model.prefill``). A vlm's cache holds its frontend positions
+        before the prompt's, so its decode starts at S + the frontend's
+        token count.
 
         Returns (B, max_new) generated token ids (greedy if temperature=0).
         """
         if temperature > 0.0 and generator is None:
             raise ValueError("sampling (temperature > 0) needs a generator")
+        cfg = self.model.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
+        S += cfg.frontend.num_tokens if cfg.family == "vlm" else 0
         logits, cache = self.model.prefill(batch)
         cache = pad_cache(self.model, cache, self.max_new, B, S)
 

@@ -7,7 +7,8 @@ finishes (EOS or budget), its slot is refilled by prefilling the next queued
 request (batch 1, any length) and splicing its cache into the batch cache
 at the free slot (axis 1 of every leaf, ('layers', 'batch', ...)). All busy
 slots then decode in one batch with per-slot positions; idle slots decode
-garbage that is ignored and overwritten by the next splice.
+garbage that is ignored and overwritten by the next splice. Text only:
+the vlm and audio families raise, as in the reference.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ class ContinuousBatcher:
     def __init__(self, model: Model, *, slots: int = 4, max_len: int = 256,
                  eos_id: Optional[int] = None):
         resolve_device(model.device)
+        if model.cfg.family in ("vlm", "audio"):
+            raise NotImplementedError("text-only scheduler")
         self.model = model
         self.slots = slots
         self.max_len = max_len

@@ -88,7 +88,7 @@ def init_leaf(spec: ParamSpec, generator: torch.Generator, default_dtype,
         return out.to(dtype)
     x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                     device=device)
-    return (x * _normal_scale(spec)).to(dtype)
+    return x.mul_(_normal_scale(spec)).to(dtype)
 
 
 def iter_init(template, seed: int = 0, default_dtype=torch.float32,
@@ -128,6 +128,9 @@ class ParamModule(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
 
     def leaf(self, path: str) -> torch.Tensor:
         """The parameter at a ``/``-joined path."""

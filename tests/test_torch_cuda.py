@@ -29,7 +29,10 @@ reference's fleet-vs-loop bar), same-shape scan and city scenarios run
 from four threads at once against each run alone (the same bars), and the
 city's peak device memory within 1.15x from 2 to 6 windows; the sweep
 backends (devices, processes, inline hosts) on the card byte-equal to
-the sequential card run."""
+the sequential card run; the MoE dispatch on the card selecting what it
+selects on the CPU (bfloat16 ties included), the MoE FFN bitwise
+deterministic on the card and within 1e-5 of the CPU in float32, and the
+reduced MLA, MoE, vlm and audio models on the card against the CPU."""
 import dataclasses
 
 import numpy as np
@@ -37,7 +40,8 @@ import pytest
 import torch
 
 from chip_smoke import (CITY_MEMORY_RATIO, CITY_SMALL, CITY_WINDOWS,
-                        FLASH_EXTRA, FLASH_TOL, KERNEL_SHAPES, REDUCED,
+                        FLASH_EXTRA, FLASH_MAIN, FLASH_TOL, KERNEL_SHAPES,
+                        REDUCED,
                         REDUCED_LOGIT_RTOL, RGLRU_SHAPES, RGLRU_TOL,
                         SCAN_F1_ATOL, SSD_SHAPES, SSD_TOL, flash_inputs,
                         flash_kwargs, kernel_inputs, reduced_card_vs_cpu,
@@ -141,8 +145,10 @@ def test_scenario_on_the_card_matches_the_cpu(cuda, algo, tech):
                                atol=5e-3)
 
 
+# llava's prefill (4 x 4928 positions) and whisper's encoder (4 x 1500
+# frames, non-causal, d 64) and decoder: the last three main-path rows
 FLASH_SHAPES = [(1, 24, 8, 777, 777, 128, True, 0, 0, "bfloat16")] + \
-    FLASH_EXTRA
+    FLASH_EXTRA + FLASH_MAIN[-3:]
 
 
 def _wgmma_edge_shapes():
@@ -222,12 +228,93 @@ def test_reduced_lm_on_the_card_matches_the_cpu(cuda):
         REDUCED_LOGIT_RTOL
 
 
-@pytest.mark.parametrize("arch,num_layers", REDUCED[1:],
-                         ids=[a for a, _ in REDUCED[1:]])
+@pytest.mark.parametrize("arch,num_layers", REDUCED[1:3],
+                         ids=[a for a, _ in REDUCED[1:3]])
 def test_reduced_ssm_and_hybrid_on_the_card_match_the_cpu(cuda, arch,
                                                           num_layers):
     assert max(reduced_card_vs_cpu(arch, seed=4, num_layers=num_layers)) \
         <= REDUCED_LOGIT_RTOL
+
+
+@pytest.mark.parametrize("arch", [a for a, _ in REDUCED[3:]])
+def test_reduced_mla_moe_vlm_audio_on_the_card_match_the_cpu(cuda, arch):
+    assert max(reduced_card_vs_cpu(arch, seed=4)) <= REDUCED_LOGIT_RTOL
+
+
+def _router_probs(T, E, seed):
+    """Router logits in bfloat16 (a bfloat16 matmul's output, as the
+    models give it), skewed towards the higher experts so that some
+    overflow at capacity 1.25, with the last expert duplicating the one
+    before it, and the third-last the fourth-last: exact ties in every
+    row among often-chosen experts, and more among the rest."""
+    g = torch.Generator().manual_seed(seed)
+    logits = (torch.randn((T, E), generator=g) * 2
+              + torch.linspace(0, 3, E)).bfloat16().float()
+    logits[:, E - 1] = logits[:, E - 2]
+    logits[:, E - 3] = logits[:, E - 4]
+    return logits
+
+
+@pytest.mark.parametrize("T,E,K,factor", [(8192, 64, 8, 1.25),
+                                          (8192, 256, 8, 1.25),
+                                          (4096, 64, 8, 8.0), (4, 64, 8, 8.0)])
+def test_moe_dispatch_on_the_card_matches_the_cpu(cuda, T, E, K, factor):
+    """The dispatch (top-k by a stable sort, the stable sort by expert,
+    capacity drops) selects the same assignments on the card as on the
+    CPU, ties included (the lower expert wins, as lax.top_k)."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import blocks
+
+    logits = _router_probs(T, E, seed=T + E)
+    C = blocks._capacity(T, MoEConfig(num_experts=E, top_k=K,
+                                      capacity_factor=factor))
+    cpu = blocks.moe_dispatch(torch.softmax(logits, -1), K, C)
+    card = blocks.moe_dispatch(torch.softmax(logits.to(cuda), -1), K, C)
+    for name, a, b in zip(("gate", "flat_e", "order", "keep", "dest"),
+                          cpu, card):
+        if name == "gate":
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-6, atol=1e-7)
+        else:
+            assert torch.equal(b.cpu(), a), name
+    flat_e = cpu[1].reshape(T, K)
+    # the last expert is taken only after its twin, the lower index
+    lo, hi = (flat_e == E - 2), (flat_e == E - 1)
+    first = lo.int().argmax(-1) < hi.int().argmax(-1)
+    assert bool((~hi.any(-1) | (lo.any(-1) & first)).all())
+    assert bool(hi.any())
+    assert bool((~cpu[3]).any()) == (factor < 8.0)  # drops at 1.25
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_ffn_on_the_card(cuda, arch):
+    """The MoE FFN on the card: float32 within 1e-5 (relative to the
+    largest |y|) of the CPU on the same weights, and bitwise equal across
+    two runs in float32 and bfloat16 (a fixed-order combine, no atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    from repro_torch.sharding.partitioning import init_params
+
+    cfg = get_config(arch).reduced()
+    p = init_params(blocks.moe_template(cfg), seed=1, device="cpu")
+    x = torch.randn((2, 512, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+
+    def run(dev, dtype):
+        tree = {}
+        for path, t in p.items():
+            node = tree
+            *head, leaf = path.split("/")
+            for part in head:
+                node = node.setdefault(part, {})
+            node[leaf] = t.to(dev, dtype)
+        return blocks.moe_ffn(tree, x.to(dev, dtype), cfg)[0]
+
+    want = run("cpu", torch.float32)
+    got = run(cuda, torch.float32)
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+    assert torch.equal(got, run(cuda, torch.float32))
+    assert torch.equal(run(cuda, torch.bfloat16), run(cuda, torch.bfloat16))
 
 
 # the batcher's shapes (B 1) and the sweep's, in both dtypes

@@ -2,6 +2,8 @@
 ``chip_smoke``'s helpers loads neither JAX nor the JAX package ``repro``
 (checked in a fresh interpreter), and the port's entry points default to
 CUDA and refuse to fall back to the CPU quietly."""
+import dataclasses
+import math
 import os
 import pkgutil
 import subprocess
@@ -40,6 +42,11 @@ def test_port_modules_import_without_jax_or_repro():
             "repro_torch.models.ssd", "repro_torch.models.rglru",
             "repro_torch.configs.mamba2_1_3b",
             "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.configs.minicpm3_4b",
+            "repro_torch.configs.olmoe_1b_7b",
+            "repro_torch.configs.deepseek_v3_671b",
+            "repro_torch.configs.llava_next_mistral_7b",
+            "repro_torch.configs.whisper_medium",
             "repro_torch.core.cityscan",
             "repro_torch.configs.covtype_htl",
             "repro_torch.core.parallel", "repro_torch.core.launcher",
@@ -60,7 +67,7 @@ def test_port_modules_import_without_jax_or_repro():
            "    phase_scan_parity, phase_paper_scan, phase_city,",
            "    small_city_card_vs_cpu, city_ledger_mismatches,",
            "    city_learning_counts, pair_counts, ShapeLog,",
-           "    normalised_json)",
+           "    normalised_json, lm_batch, cache_len, serve_config)",
            "from chip_smoke import (phase_orchestration, phase_backends,",
            "    phase_hosts, phase_service, phase_pareto, PARETO_SEARCHES)",
            "bad = sorted(m for m in sys.modules",
@@ -170,7 +177,9 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # asking for the CPU works everywhere
-    for arch in ("llama3.2-3b", "mamba2-1.3b", "recurrentgemma-9b"):
+    for arch in ("llama3.2-3b", "mamba2-1.3b", "recurrentgemma-9b",
+                 "minicpm3-4b", "olmoe-1b-7b", "deepseek-v3-671b",
+                 "llava-next-mistral-7b", "whisper-medium"):
         out = serve.main(["--arch", arch, "--run", "--device", "cpu"])
         assert tuple(out.shape) == (2, 8)
     assert ContinuousBatcher(cpu_model, slots=2).slots == 2
@@ -179,24 +188,57 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unported_families_raise_naming_their_roadmap_item():
-    import dataclasses
-
-    from repro_torch.configs import NOT_PORTED, get_config
-    from repro_torch.configs.base import MLAConfig
+    """Every architecture of the reference is registered and builds; what
+    is left unported is training, whose entry point names its ROADMAP
+    item."""
+    import repro_torch.configs as configs
+    from repro_torch.configs import ALL_ARCHS, get_config
     from repro_torch.models import build_model
 
-    assert "mamba2-1.3b" not in NOT_PORTED
-    assert "recurrentgemma-9b" not in NOT_PORTED
-    for arch in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            get_config(arch)
-    mla = dataclasses.replace(get_config("llama3.2-3b").reduced(),
-                              name="minicpm3-4b", mla=MLAConfig())
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        build_model(mla, device="cpu")
-    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
-        assert build_model(get_config(arch).reduced(),
-                           device="meta").cfg.name == arch
+    assert not hasattr(configs, "NOT_PORTED")
+    assert len(ALL_ARCHS) == 10
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
+    for arch in ALL_ARCHS:
+        model = build_model(get_config(arch).reduced(), device="cpu")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9d"):
+            model.loss_fn({})
+
+
+REFERENCE_ARCHS = ["whisper-medium", "llava-next-mistral-7b", "mamba2-1.3b",
+                   "qwen2-72b", "recurrentgemma-9b", "minicpm3-4b",
+                   "llama3.2-3b", "olmoe-1b-7b", "granite-3-8b",
+                   "deepseek-v3-671b"]
+
+
+@pytest.mark.parametrize("arch", REFERENCE_ARCHS)
+def test_every_reference_arch_builds_on_meta(arch):
+    """Each architecture of the JAX package, at full size, builds on the
+    meta device with the reference's parameter template (paths, shapes,
+    axes, initialisers) and config."""
+    import jax
+
+    from repro.checkpoint.checkpointer import _path_str
+    from repro.configs import ALL_ARCHS as J_ARCHS
+    from repro.configs import get_config as j_config
+    from repro.models import build_model as j_build
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.sharding.partitioning import flatten
+
+    assert sorted(J_ARCHS) == sorted(REFERENCE_ARCHS)
+    cfg = get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(j_config(arch))
+    model = build_model(cfg, device="meta")
+    assert model.device.type == "meta"
+    want = {_path_str(p): (tuple(s.shape), tuple(s.axes), s.init)
+            for p, s in jax.tree_util.tree_flatten_with_path(
+                j_build(j_config(arch)).template(),
+                is_leaf=lambda x: hasattr(x, "axes"))[0]}
+    got = {p: (s.shape, s.axes, s.init) for p, s in flatten(model.template())}
+    assert got == want
+    n_params = sum(p.numel() for p in model.parameters())
+    assert n_params == sum(math.prod(s[0]) for s in want.values())
 
 
 def test_parameter_initialisers_default_to_cuda(monkeypatch):
