@@ -15,8 +15,9 @@ failure raises and the script exits non-zero without printing a result:
    line with the registers and spill bytes of every kernel function, and a
    check that no instantiation of the bf16 tensor-core flash kernel (head
    dims 32, 64, 128, 256), of the three tensor-core ``ssd_scan`` kernels
-   (N 64, 128) or of the ``loo_trials`` kernel (D buckets 16-128, plain
-   and fused) spills;
+   (N 64, 128), of the ``loo_trials`` kernel (D buckets 16-128, plain
+   and fused) or of the ``rglru_scan`` kernel (channel groups 32, 64; TMA
+   and cp.async routes) spills;
 3. kernel — ``loo_trials`` against its plain PyTorch version on the card at
    every main-path shape (a grid of L, R and D, and the shapes beyond it
    that phases 7-8d launch, the city's refine among them; rtol 1e-5, atol
@@ -49,8 +50,11 @@ failure raises and the script exits non-zero without printing a result:
    keeps the CUDA-core kernel's earlier time as ``earlier_us``;
 6. rglru — ``rglru_scan`` against its plain version and the sequential
    oracle at recurrentgemma-9b's prefill shapes (W 4096, float32; B 4 x
-   S 2048 and B 1 at each batcher prompt length) and the JAX sweep's four
-   shapes (max abs error 1e-4);
+   S 2048 and B 1 at each batcher prompt length), the JAX sweep's four
+   shapes and ``RGLRU_EXTRA``'s long, odd-width and offset rows (max abs
+   error 1e-4, two launches bitwise equal); each row names its launch
+   plan, route and share of the bound, and keeps the two-pass kernel's
+   time as ``earlier_us``;
 7. smoke — the ``smoke`` preset (4 windows, 2 seeds) against
    ``tests/golden/smoke_golden.json``;
 8. paper — the 32-label ``paper_tables`` grid at the paper's data size
@@ -348,6 +352,20 @@ RGLRU_TOL = 1e-4
 RGLRU_SHAPES = [(SERVE_BATCH, SERVE_PROMPT, 4096)] + [
     (1, n, 4096) for n in HYBRID_PROMPTS] + [
     (2, 256, 256), (1, 128, 128), (3, 512, 384), (1, 64, 512)]
+# (B, S, W, offset): a time axis that takes many cluster windows, widths
+# off the 4-float (16-byte) grain, and views that start `offset` floats
+# into each row of a wider tensor (a misaligned base: the cp.async route).
+RGLRU_EXTRA = [(1, 20000, 256, 0), (2, 300, 77, 0), (1, 2048, 4094, 0),
+               (2, 1000, 384, 1), (1, 2048, 4096, 1)]
+# Each row's time (us) under the two-pass kernel of PRs 13-20, RGLRU_SHAPES
+# then RGLRU_EXTRA (scripts/torch_rglru_plan.py --parent, in turns with the
+# one-pass kernel's first version; H100 80GB HBM3, 700 W).
+RGLRU_EARLIER_US = [237.8, 72.6, 73.8, 79.3, 86.1, 90.7, 95.6, 99.2, 102.6,
+                    9.5, 7.5, 13.6, 7.2, 383.0, 11.0, 76.5, 21.5, 75.9]
+# The rglru_scan kernel's instantiations (channel group, TMA route); none
+# may spill.
+RGLRU_KERNELS = tuple(f"rglru_scan_kernel<{g},{t}>" for g in (32, 64)
+                      for t in (0, 1))
 SCAN_REPS = 10
 # The bf16 tensor-core ssd_scan kernels (ptxas labels); none may spill.
 SSD_TC_KERNELS = ("ssd_chunk_state_kernel<64>", "ssd_chunk_state_kernel<128>",
@@ -726,13 +744,16 @@ def phase_ssd(ss):
     return rows, max(worst.values())
 
 
-def rglru_inputs(shape, seed, device):
+def rglru_inputs(shape, seed, device, offset=0):
     """The JAX sweep's inputs (tests/test_kernels.py:91-92), float32: a =
-    sigmoid(normal), b = normal / 2."""
+    sigmoid(normal), b = normal / 2. With ``offset``, views ``[..., offset:]``
+    of (B, S, W + offset) tensors."""
+    B, S, W = shape
     g = torch.Generator(device=device).manual_seed(seed)
-    a = torch.sigmoid(torch.randn(shape, generator=g, device=device))
-    b = torch.randn(shape, generator=g, device=device) * 0.5
-    return a, b
+    full = (B, S, W + offset)
+    a = torch.sigmoid(torch.randn(full, generator=g, device=device))
+    b = torch.randn(full, generator=g, device=device) * 0.5
+    return a[..., offset:], b[..., offset:]
 
 
 def rglru_cost(shape):
@@ -742,11 +763,19 @@ def rglru_cost(shape):
     return 3 * 4 * B * S * W, 2 * B * S * W
 
 
+def rglru_rows():
+    """(B, S, W, offset) of every row of the rglru phase: RGLRU_SHAPES,
+    then RGLRU_EXTRA."""
+    return [s + (0,) for s in RGLRU_SHAPES] + RGLRU_EXTRA
+
+
 def phase_rglru(rg):
     t0 = time.perf_counter()
     rows, worst = [], 0.0
-    for i, shape in enumerate(RGLRU_SHAPES):
-        a, b = rglru_inputs(shape, seed=400 + i, device="cuda")
+    for i, (B, S, W, offset) in enumerate(rglru_rows()):
+        shape = (B, S, W)
+        a, b = rglru_inputs(shape, seed=400 + i, device="cuda",
+                            offset=offset)
         h = rg.rglru_scan(a, b)
         h2 = rg.rglru_scan(a, b)
         hp = rg.rglru_scan_ref(a, b)
@@ -762,12 +791,17 @@ def phase_rglru(rg):
               f"rglru_scan at {shape}: max abs err {err} (plain), {err_o} "
               f"(oracle)")
         worst = max(worst, err)
-        row = {"shape": list(shape), "max_abs_err": err,
-               "max_abs_err_oracle": err_o}
+        plan = rg.launch_plan(B, S, W)
+        row = {"shape": list(shape), "offset": offset,
+               "route": "tma" if rg.tma_route(a, b, h) else "cp.async",
+               "plan": plan._asdict(), "windows": plan.windows(S),
+               "max_abs_err": err, "max_abs_err_oracle": err_o}
         row["kernel_us"], row["plain_us"] = time_pair(
             lambda: rg.rglru_scan(a, b), lambda: rg.rglru_scan_ref(a, b))
         row["bound_us"], row["bound_by"] = bound(*rglru_cost(shape),
                                                  "float32")
+        row["bound_share"] = row["bound_us"] / row["kernel_us"]
+        row["earlier_us"] = RGLRU_EARLIER_US[i]
         row["library_us"] = None
         rows.append(row)
     emit({"phase": "rglru", "kernel": "rglru_scan", "tol": RGLRU_TOL,
@@ -1795,7 +1829,8 @@ def main() -> int:
         check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
               f"{FLASH_TC_KERNEL}<{d}> spills: {rep}")
     for lib, names in (("ssd_scan", SSD_TC_KERNELS),
-                       ("loo_trials", LOO_KERNELS)):
+                       ("loo_trials", LOO_KERNELS),
+                       ("rglru_scan", RGLRU_KERNELS)):
         for name in names:
             rep = ptxas[lib].get(name)
             check(rep is not None, f"no ptxas report for {name}")

@@ -18,7 +18,10 @@ launches the hand-written kernel (``csrc/flash_attention.cu``, float32 or
 bfloat16, head_dim 32/64/128/256, read in place through strides in either
 layout) or raises; a CPU tensor takes :func:`flash_attention_ref` (or
 :func:`flash_attention_bshd_ref`). A failed
-build or launch is never swapped for the plain version. Inside the CUDA
+build or launch is never swapped for the plain version. The kernel has no
+backward: a CUDA call with an input that requires grad raises under grad
+mode (:func:`~repro_torch.kernels._grad.forbid_grad`); the plain version
+is torch and differentiates. Inside the CUDA
 source, bfloat16 with 16-byte aligned rows (every contiguous layout; see
 :func:`tensor_core_route`) runs the Hopper kernel: TMA loads into a shared-memory ring fed by a producer
 warpgroup, two consumer warpgroups running both products on ``wgmma``
@@ -37,6 +40,8 @@ import ctypes
 import math
 
 import torch
+
+from repro_torch.kernels._grad import forbid_grad
 
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -163,6 +168,7 @@ def _launch(q, k, v, causal, window, q_offset, dims):
 def _dispatch(q, k, v, causal, window, q_offset, bshd):
     dims = _check(q, k, v, bshd)
     if q.device.type == "cuda":
+        forbid_grad("flash_attention", q, k, v)
         return _launch(q, k, v, causal, window, q_offset, dims)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention: no implementation for device "

@@ -20,7 +20,10 @@ autotuner and no override: a CUDA tensor launches the hand-written kernel
 (``csrc/loo_trials.cu``, one thread-block cluster per DC and candidate
 tile, laid out by :func:`launch_plan`) or raises; a CPU tensor takes
 :func:`loo_trials_ref` (or :func:`loo_trials_step_ref`). A failed build or
-launch is never swapped for the plain version.
+launch is never swapped for the plain version. The kernel has no backward:
+a CUDA call with an input that requires grad raises under grad mode
+(:func:`~repro_torch.kernels._grad.forbid_grad`); the plain versions are
+torch and differentiate.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels._grad import forbid_grad
 
 MAX_CANDIDATES = 128
 MAX_D = 128
@@ -194,6 +199,7 @@ def loo_trials(ut, cc, a_cand, fitted_base, h_base, y, rmask, zj, dinv):
     args = (ut, cc, a_cand, fitted_base, h_base, y, rmask, zj, dinv)
     L, R, D, M = _check("loo_trials", _NAMES, args)
     if ut.device.type == "cuda":
+        forbid_grad("loo_trials", *args)
         return _launch("loo_trials", args, 1, L, R, D, M)[0]
     if ut.device.type == "cpu":
         return loo_trials_ref(*args)
@@ -211,6 +217,7 @@ def loo_trials_step(ut, cc, a_cand, fitted, h, y, rmask, diag_g, aty_m, z,
             src_mask)
     L, R, D, M = _check("loo_trials_step", _STEP_NAMES, args)
     if ut.device.type == "cuda":
+        forbid_grad("loo_trials_step", *args)
         return tuple(_launch("loo_trials_step", args, 3, L, R, D, M))
     if ut.device.type == "cpu":
         return loo_trials_step_ref(*args)

@@ -13,7 +13,10 @@ Implementation choice is by the tensors' device only: a CUDA tensor
 launches the hand-written kernels (``csrc/ssd_scan.cu``: float32 or
 bfloat16 x/B/C, P and N up to 128, any S, x and B/C read in place through
 strides) or raises; a CPU tensor takes :func:`ssd_chunked`. A failed
-build or launch is never swapped for the plain version.
+build or launch is never swapped for the plain version. The kernels have
+no backward: a CUDA call with an input that requires grad raises under
+grad mode (:func:`~repro_torch.kernels._grad.forbid_grad`); the plain
+versions are torch and differentiate.
 
 On the card there are two routes, chosen by :func:`tensor_core_route`:
 
@@ -46,6 +49,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from repro_torch.kernels._grad import forbid_grad
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_PN = 128
@@ -345,6 +350,7 @@ def chunk_states(x, dt, A, Bm, Cm, *, chunk: int):
     if x.device.type != "cuda" or not tensor_core_route(x, Bm, Cm, chunk):
         raise ValueError("chunk_states: only a CUDA call that takes the "
                          "tensor-core route runs the chunk-state kernel")
+    forbid_grad("chunk_states", x, dt, A, Bm, Cm)
     _, _, cs, states = _launch_tc(x, dt.float(), A.float().contiguous(), Bm,
                                   Cm, chunk, dims)
     launches += 1
@@ -356,6 +362,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     the kernel, CPU tensors :func:`ssd_chunked`; anything else raises."""
     dims = _check(x, dt, A, Bm, Cm)
     if x.device.type == "cuda":
+        forbid_grad("ssd_scan", x, dt, A, Bm, Cm)
         return _launch(x, dt, A, Bm, Cm, chunk, dims)
     if x.device.type != "cpu":
         raise ValueError(f"ssd_scan: no implementation for device "

@@ -42,7 +42,8 @@ import torch
 from chip_smoke import (CITY_MEMORY_RATIO, CITY_SMALL, CITY_WINDOWS,
                         FLASH_EXTRA, FLASH_MAIN, FLASH_TOL, KERNEL_SHAPES,
                         REDUCED,
-                        REDUCED_LOGIT_RTOL, RGLRU_SHAPES, RGLRU_TOL,
+                        REDUCED_LOGIT_RTOL, RGLRU_EXTRA, RGLRU_SHAPES,
+                        RGLRU_TOL,
                         SCAN_F1_ATOL, SSD_SHAPES, SSD_TOL, flash_inputs,
                         flash_kwargs, kernel_inputs, reduced_card_vs_cpu,
                         rel_err, rglru_inputs, small_city_card_vs_cpu,
@@ -483,6 +484,106 @@ def test_rglru_kernel_matches_plain_version(cuda, shape):
                                          b[:, 1:].contiguous()))
     with pytest.raises(ValueError, match="float32"):
         rg.rglru_scan(a.bfloat16(), b.bfloat16())
+
+
+# (B, S, W, offset): chip_smoke's extra rows (a time axis of many cluster
+# windows, widths off the 16-byte grain, offset views) and a few edges: one
+# step, one short block, a window plus one step, an odd width in a view.
+RGLRU_CARD_EXTRA = RGLRU_EXTRA + [(1, 1, 64, 0), (3, 77, 40, 0),
+                                  (2, 2049, 4096, 0), (1, 300, 384, 3)]
+
+
+@pytest.mark.parametrize("row", RGLRU_CARD_EXTRA,
+                         ids=[str(r) for r in RGLRU_CARD_EXTRA])
+def test_rglru_kernel_long_unaligned_and_offset_inputs(cuda, row):
+    """Within 1e-4 of the plain version and of the sequential oracle,
+    bitwise equal across launches, on the route ``tma_route`` names, and
+    bitwise equal to its contiguous copy (which may take the other
+    route: both compose in the same order)."""
+    B, S, W, offset = row
+    a, b = rglru_inputs((B, S, W), seed=610, device=cuda, offset=offset)
+    h = rg.rglru_scan(a, b)
+    assert torch.equal(h, rg.rglru_scan(a, b))
+    assert float((h - rg.rglru_scan_ref(a, b)).abs().max()) <= RGLRU_TOL
+    assert float((h - rg.rglru_reference(a, b)).abs().max()) <= RGLRU_TOL
+    assert rg.tma_route(a, b, h) == (W % 4 == 0 and offset % 4 == 0)
+    assert torch.equal(h, rg.rglru_scan(a.contiguous(), b.contiguous()))
+
+
+# Kernel layouts (channel group, cluster, chunk): one block, odd clusters,
+# groups of 64, the longest chunks, and chunks that make S take many
+# (double-buffered) windows.
+RGLRU_PLANS = [(32, 1, 8), (32, 3, 32), (64, 8, 64), (32, 8, 256),
+               (64, 2, 128), (32, 5, 136), (64, 1, 32)]
+# The kernel against rglru_chunked_ref under the same layout: the same
+# composition and roundings, except that the plain version's float64 FMA
+# rounds twice (rarely one float32 ulp apart).
+RGLRU_CHUNKED_TOL = 1e-6
+
+
+@pytest.mark.parametrize("plan", RGLRU_PLANS, ids=[str(p) for p in RGLRU_PLANS])
+def test_rglru_kernel_composes_as_its_plain_decomposition(cuda, plan):
+    """Under every layout, on both routes: within 1e-6 of
+    ``rglru_chunked_ref`` with that layout and bitwise equal across the
+    routes and across launches."""
+    plan = rg.LaunchPlan(*plan)
+    for i, (B, S, W) in enumerate([(2, 300, 76), (1, 1000, 256),
+                                   (3, 64, 128), (1, 2500, 40)]):
+        a, b = rglru_inputs((B, S, W), seed=620 + i, device=cuda)
+        want = rg.rglru_chunked_ref(a, b, **plan.chunked_ref_args())
+        h = rg._launch(a, b, plan, tma=True)
+        assert float((h - want).abs().max()) <= RGLRU_CHUNKED_TOL
+        assert torch.equal(h, rg._launch(a, b, plan, tma=False))
+        assert torch.equal(h, rg._launch(a, b, plan, tma=True))
+
+
+def _grad_case(entry, device):
+    """(kernel name, call, inputs) of a CUDA entry point at a small shape
+    of its main path."""
+    flash = flash_inputs((1, 4, 2, 64, 64, 64, True, 0, 0, "bfloat16"), 0,
+                         device)
+    tc = ssd_tc_inputs(1, 128, 1, 64, False, 0, device)
+    return {
+        "flash_attention": ("flash_attention", lambda *t: fa.flash_attention(
+            *(x.transpose(1, 2) for x in t)), flash),
+        "flash_attention_bshd": ("flash_attention", fa.flash_attention_bshd,
+                                 flash),
+        "ssd_scan": ("ssd_scan", lambda *t: ss.ssd_scan(*t, chunk=64), tc),
+        "chunk_states": ("chunk_states",
+                         lambda *t: ss.chunk_states(*t, chunk=64), tc),
+        "rglru_scan": ("rglru_scan", rg.rglru_scan,
+                       rglru_inputs((2, 64, 128), 0, device)),
+        "loo_trials": ("loo_trials", loo.loo_trials,
+                       kernel_inputs(2, 64, 23, 16, 0, device)),
+        "loo_trials_step": ("loo_trials_step", loo.loo_trials_step,
+                            step_inputs(2, 64, 23, 16, 0, device))}[entry]
+
+
+GRAD_ENTRY_POINTS = ["flash_attention", "flash_attention_bshd", "ssd_scan",
+                     "chunk_states", "rglru_scan", "loo_trials",
+                     "loo_trials_step"]
+
+
+@pytest.mark.parametrize("entry", GRAD_ENTRY_POINTS)
+def test_cuda_entry_points_refuse_inputs_that_require_grad(cuda, entry):
+    """With grad enabled and inputs that require grad, the entry point
+    raises naming its kernel and launches nothing (the kernel has no
+    backward, and its output would silently carry no gradient); under
+    ``torch.no_grad()`` the same inputs give the bits plain inputs give."""
+    name, call, args = _grad_case(entry, cuda)
+    want = call(*args)
+    grads = [t.detach().clone().requires_grad_(t.is_floating_point())
+             for t in args]
+    counts = (fa.launches, ss.launches, rg.launches, loo.launches)
+    with pytest.raises(RuntimeError, match=f"^{name}: .*no backward"):
+        call(*grads)
+    assert (fa.launches, ss.launches, rg.launches, loo.launches) == counts
+    with torch.no_grad():
+        got = call(*grads)
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert not g.requires_grad
+        assert torch.equal(g, w)
 
 
 def test_flash_kernel_unaligned_bfloat16_takes_the_cuda_core_kernel(cuda):
