@@ -136,7 +136,32 @@ failure raises and the script exits non-zero without printing a result:
    each kernel's share of prefill device time (``torch.profiler``);
 17. reduced — the reduced configs of those eight archs (recurrentgemma with
    5 layers: one period with attention, two tail layers) in float32, the
-   port on the card against the port on the CPU with the same weights.
+   port on the card against the port on the CPU with the same weights;
+18. train — llama3.2-3b at full width and depth in bfloat16 with its
+   config's ``remat="full"`` (per-layer recomputation): 8 AdamW steps of
+   ``launch.train.make_train_step`` under ``train_loop``'s schedule (20
+   warmup steps) at a peak lr of 1e-4 (``TRAIN_PEAK_LR``: its 1e-3
+   overshoots at this width) on ``TokenStream`` batches of 4 x 2048;
+   per step loss, gnorm, lr and ms, then tokens/s (median step after the
+   first) and peak device memory; every loss and gnorm finite, the mean
+   of the last two losses below the first, and no kernel launched (the
+   loss takes the plain route of every mixer: the kernels have no
+   backward);
+19. train_card_vs_cpu — reduced llama3.2-3b and deepseek-v3-671b (MoE,
+   MLA, MTP) in float32, one seed: the loss within 1e-5 relative and every
+   gradient within 1e-4 of its leaf's max |g| (+1e-9) of the CPU's;
+20. train_resume — reduced llama3.2-3b on the card: 4 steps and a
+   checkpoint, a resume to 8 (finite, and not the uninterrupted run's
+   parameters: the stream is reseeded, as ``tests/test_train_resume.py``
+   asserts); the checkpoint loads bit for bit into a fresh model and
+   optimizer state, and a save of those loads back bit for bit;
+21. htl — the hypothesis-transfer trainer with the reference driver's
+   model (``examples/train_htl_lm.py``: 12 layers x 768, vocab 32768,
+   float32, ~100M parameters), 4 collectors, 8 local steps, 8 sequences
+   of 256 per step split over the collectors: 4 rounds each of ``sync``,
+   ``star`` and ``a2a`` (``"gd"`` mixing, 4 steps), their round losses,
+   seconds per round and ``round_traffic_bytes``; losses finite and
+   falling, every DC's hypothesis identical after each transfer.
 
 Then the whole script's seconds, the ``{"kernels": [...]}`` line (the
 four ported kernels, and the fused step as a fifth line of the
@@ -391,6 +416,34 @@ REPLACES = {"loo_trials": "src/repro/kernels/loo_trials.py:51",
             "flash_attention": "src/repro/kernels/flash_attention.py:25",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:22",
             "rglru_scan": "src/repro/kernels/rglru_scan.py:21"}
+
+
+# The training phases. ``train``: llama3.2-3b at full width and depth in
+# bfloat16 with its config's ``remat="full"``, TRAIN_STEPS AdamW steps of
+# make_train_step on TokenStream batches of TRAIN_BATCH x TRAIN_SEQ (the
+# serve headline's tokens), under train_loop's schedule (20 warmup steps,
+# cosine to total_steps) at a peak lr of TRAIN_PEAK_LR, not its 1e-3: at
+# this width the first nonzero step of that schedule (5e-5) overshoots
+# from the seeded weights (the loss rose 12.32 -> 13.63 over 8 steps),
+# while the bf16 gradient is within cos 0.999 of a float32 twin's and one
+# step of 2e-5 takes the loss to 10.48 (scripts/torch_train_probe.py on
+# the H100; PERF.md, PR 22).
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "llama3.2-3b", 4, 2048, 8
+TRAIN_PEAK_LR = 1e-4
+# ``train_card_vs_cpu``: reduced configs in float32, the loss within 1e-5
+# relative and every gradient within 1e-4 of its leaf's max |g| (+1e-9:
+# leaves the loss does not depend on give rounding noise), the CPU tests'
+# bounds against JAX; expected: float32 reduction order only, ~1e-5.
+TRAIN_REDUCED = ("llama3.2-3b", "deepseek-v3-671b")
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-5, 1e-4, 1e-9
+# ``htl``: the reference's end-to-end driver's model
+# (examples/train_htl_lm.py:make_cfg(small=False): 12 layers x 768, vocab
+# 32768, float32, ~100M parameters), L collectors, H local steps, 8
+# sequences of 256 per step split over the collectors, HTL_ROUNDS rounds
+# of each mode, the example's mixing steps and optimizer.
+HTL_COLLECTORS, HTL_LOCAL, HTL_SEQS, HTL_SEQ, HTL_ROUNDS = 4, 8, 8, 256, 4
+HTL_MIXING_STEPS = 4
+HTL_MODES = ("sync", "star", "a2a")
 
 
 def emit(obj) -> None:
@@ -1149,6 +1202,251 @@ def phase_reduced():
               f"CPU: rel errs {errs} > {REDUCED_LOGIT_RTOL}")
 
 
+def phase_train(mods):
+    """llama3.2-3b at full width: TRAIN_STEPS AdamW steps (module doc);
+    per step loss, gnorm, lr and ms (synchronised host clock), tokens/s,
+    peak device memory. The loss takes the plain route of every mixer, so
+    no kernel launches (the counts of ``mods`` stay 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16",
+          f"{TRAIN_ARCH}: remat {cfg.remat}, dtype {cfg.dtype}")
+    # the tokens are drawn before the clock starts (a Python loop per token)
+    it = TokenStream(cfg.vocab_size, seed=0).batches(TRAIN_BATCH, TRAIN_SEQ)
+    batches = [next(it) for _ in range(TRAIN_STEPS)]
+    model = build_model(cfg).init(seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt_cfg = OptimizerConfig(lr=TRAIN_PEAK_LR, warmup_steps=20,
+                              total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(model, opt_cfg)
+    opt = adamw_init(model.param_tree())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for mod in mods.values():
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt, m = step_fn(opt, b, i)
+        torch.cuda.synchronize()
+        rows.append({"step": i, "ms": (time.perf_counter() - t1) * 1e3,
+                     **{k: float(m[k]) for k in ("loss", "gnorm", "lr")}})
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: mod.launches for name, mod in mods.items()}
+    steady = sorted(r["ms"] for r in rows[1:])
+    median_ms = steady[len(steady) // 2]
+    losses = [r["loss"] for r in rows]
+    out = {"phase": "train", "arch": TRAIN_ARCH, "dtype": cfg.dtype,
+           "remat": cfg.remat, "layers": cfg.num_layers, "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "optimizer": dataclasses.asdict(opt_cfg), "steps": rows,
+           "first_step_ms": rows[0]["ms"], "median_ms_after_first": median_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_ms * 1e3,
+           "peak_memory_bytes": peak, "launches": launches,
+           "setup_s": setup_s, "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(all(np.isfinite([r["loss"], r["gnorm"]]).all() for r in rows),
+          f"train: non-finite loss or gnorm: {rows}")
+    check(sum(losses[-2:]) / 2 < losses[0],
+          f"train: the loss did not fall: {losses}")
+    check(not any(launches.values()), f"train: the loss path launched "
+          f"kernels {launches}: it takes the plain route")
+    del model, opt, step_fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_card_vs_cpu(arch, seed=0, num_layers=None):
+    """A reduced config (``num_layers`` overriding its depth) in float32,
+    one seed: (relative error of the loss, worst gradient error over its
+    leaf's max |g| with the 1e-9 floor subtracted out as the bound does,
+    the leaf), ``loss_fn`` on the card against the CPU, same weights and
+    batch."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    cpu = build_model(cfg, device="cpu").init(seed=seed)
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = lm_batch(cfg, 2, 64, seed=5, device="cpu")
+    out = {}
+    for m, dev in ((cpu, "cpu"), (card, "cuda")):
+        m.requires_grad_(True)
+        total, _ = m.loss_fn({k: v.to(dev) for k, v in batch.items()})
+        total.backward()
+        out[dev] = (float(total.detach()), {k: (torch.stack([t.grad for t in v])
+                                       if isinstance(v, list) else v.grad)
+                                   .detach().cpu()
+                                   for k, v in m.param_tree().items()})
+    loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    worst, leaf = 0.0, None
+    for k, want in out["cpu"][1].items():
+        err = float((out["cuda"][1][k] - want).abs().max())
+        rel = max(err - TRAIN_GRAD_ATOL, 0.0) / max(
+            float(want.abs().max()), 1e-30)
+        if rel >= worst:
+            worst, leaf = rel, k
+    return loss_err, worst, leaf
+
+
+def phase_train_card_vs_cpu():
+    t0 = time.perf_counter()
+    for arch in TRAIN_REDUCED:
+        loss_err, grad_err, leaf = train_card_vs_cpu(arch)
+        emit({"phase": "train_card_vs_cpu", "arch": f"{arch} reduced "
+              "(float32)", "loss_rel_err": loss_err,
+              "grad_err_over_leaf_max": grad_err, "worst_leaf": leaf,
+              "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL,
+              "grad_atol": TRAIN_GRAD_ATOL,
+              "seconds": time.perf_counter() - t0})
+        check(loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL,
+              f"{arch}: card vs CPU loss {loss_err}, gradient {grad_err} "
+              f"({leaf})")
+
+
+def phase_train_resume():
+    """tests/test_train_resume.py on the card (reduced llama3.2-3b): 4
+    steps and a checkpoint, a resume to 8, against 8 uninterrupted steps;
+    a load of the checkpoint is bit for bit the model it saved, and a save
+    of what was loaded loads back bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_train_state, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    kw = dict(batch=2, seq_len=32, log_every=100)
+
+    def tree(model):
+        return {k: (torch.stack(v) if isinstance(v, list) else v).detach()
+                for k, v in model.param_tree().items()}
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a) and set(a) == set(b)
+
+    with tempfile.TemporaryDirectory() as d:
+        full, _ = train_loop(TRAIN_ARCH, steps=8, **kw)
+        at4, _ = train_loop(TRAIN_ARCH, steps=4, ckpt_dir=d, ckpt_every=4,
+                            **kw)
+        cfg = get_config(TRAIN_ARCH).reduced()
+        loaded = build_model(cfg)
+        opt, step = load_train_state(d, loaded)
+        d2 = os.path.join(d, "again")
+        save_checkpoint(d2, {"params": loaded.param_tree(), "opt": opt},
+                        step=step)
+        again = build_model(cfg)
+        opt2, step2 = load_train_state(d2, again)
+        resumed, _ = train_loop(TRAIN_ARCH, steps=8, ckpt_dir=d,
+                                ckpt_every=100, **kw)
+    p_full, p_res = tree(full), tree(resumed)
+    finite = all(bool(torch.isfinite(v).all()) for v in p_res.values())
+    diff = sum(float((p_full[k] - p_res[k]).abs().sum()) for k in p_full)
+    bit_for_bit = (same(tree(at4), tree(loaded)) and same(tree(loaded),
+                                                          tree(again))
+                   and step == step2 == 4 and torch.equal(opt.count,
+                                                          opt2.count)
+                   and same(opt.mu, opt2.mu) and same(opt.nu, opt2.nu))
+    emit({"phase": "train_resume", "arch": f"{TRAIN_ARCH} reduced",
+          "resumed_finite": finite, "diff_vs_uninterrupted": diff,
+          "save_load_bit_for_bit": bit_for_bit,
+          "seconds": time.perf_counter() - t0})
+    check(finite and diff > 0, f"train_resume: finite {finite}, diff {diff}")
+    check(bit_for_bit, "train_resume: a save and a load are not bit for bit")
+
+
+def htl_config():
+    """examples/train_htl_lm.py:make_cfg(small=False), ~100M parameters."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(
+        get_config("llama3.2-3b"), num_layers=12, d_model=768, num_heads=12,
+        num_kv_heads=4, head_dim=64, d_ff=2048, vocab_size=32768,
+        remat="none", dtype="float32")
+
+
+def phase_htl():
+    """The hypothesis-transfer trainer on the card, as the reference's
+    driver runs it: HTL_ROUNDS rounds of each mode (a local phase of
+    HTL_LOCAL steps, then a transfer, HTL or not), s/round, the traffic
+    ledger; losses finite and falling, every DC's hypothesis the same
+    after each transfer."""
+    from repro_torch.configs.base import HTLConfig, OptimizerConfig
+    from repro_torch.core.htl_trainer import HTLTrainer
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cfg = htl_config()
+    model = build_model(cfg)
+    L, H, seq = HTL_COLLECTORS, HTL_LOCAL, HTL_SEQ
+    steps = HTL_ROUNDS * H
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {"phase": "htl", "params": n_params, "collectors": L,
+           "local_steps": H, "sequences": HTL_SEQS, "seq": seq,
+           "rounds": HTL_ROUNDS, "modes": {}}
+    for mode in HTL_MODES:
+        tr = HTLTrainer(model, OptimizerConfig(lr=1e-3, warmup_steps=20,
+                                               total_steps=steps),
+                        HTLConfig(mode=mode, num_collectors=L,
+                                  local_steps=H,
+                                  mixing_steps=HTL_MIXING_STEPS))
+        state = tr.init(0)
+        stream = TokenStream(cfg.vocab_size, seed=0)
+        per_dc = HTL_SEQS if mode == "sync" else HTL_SEQS // L
+        lead = () if mode == "sync" else (L,)
+
+        def batches(h):
+            toks = np.stack([stream.tokens(int(np.prod(lead)) * per_dc
+                                           * (seq + 1))
+                             .reshape(lead + (per_dc, seq + 1))
+                             for _ in range(h)])
+            t = torch.from_numpy(toks).cuda()
+            return {"tokens": t[..., :-1], "targets": t[..., 1:]}
+
+        losses, walls, same = [], [], True
+        for _ in range(HTL_ROUNDS):
+            local, mix = batches(H), batches(1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, ls = tr.local_phase(state, local)
+            if mode != "sync":
+                state = tr.transfer_phase(state, {k: v[0]
+                                                  for k, v in mix.items()})
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            losses.append(float(ls.mean()))
+            if mode != "sync":
+                same &= all(bool((v == v[:1]).all())
+                            for v in state.params.values())
+        out["modes"][mode] = {"losses": losses, "s_per_round": walls,
+                              "traffic": tr.round_traffic_bytes(),
+                              "hypotheses_equal_after_transfer": same}
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"htl {mode}: losses {losses}")
+        check(same, f"htl {mode}: DC hypotheses differ after a transfer")
+        del state, tr
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def summaries(result):
     return {lbl: result.summary(lbl) for lbl in result.labels()}
 
@@ -1900,6 +2198,15 @@ def main() -> int:
 
     # 17. the reduced configs, card against CPU
     phase_reduced()
+
+    # 18.-21. training: llama3.2-3b at full width, reduced configs card vs
+    # CPU, checkpoint and resume, the hypothesis-transfer trainer
+    lm_mods = {n: mods[n] for n in ("flash_attention", "ssd_scan",
+                                    "rglru_scan")}
+    phase_train(lm_mods)
+    phase_train_card_vs_cpu()
+    phase_train_resume()
+    phase_htl()
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     head = next(r for r in rows

@@ -15,6 +15,11 @@ leaves, a mapping from ``/``-joined tree path to numpy array (what
 ``repro.checkpoint.save_checkpoint`` writes and
 :func:`repro_torch.checkpoint.load_checkpoint` reads back), e.g.
 ``layers/attn/wq`` of shape (L, D, H, hd), split across the port's layers.
+Training state: :func:`adamw_from_reference` and
+:func:`htl_state_from_reference` take the reference's ``AdamWState`` and
+``HTLState`` flattened the same way (``.count``, ``.mu/<path>``, ...;
+the keys its checkpointer writes), so that both packages can start from
+one state.
 """
 from __future__ import annotations
 
@@ -107,3 +112,53 @@ def _to_reference_one(name: str, t: torch.Tensor) -> np.ndarray:
     if name != MASK_KEY:
         _check_model(name, a)
     return a
+
+
+def subtree(arrays: Mapping[str, Any], prefix: str) -> dict:
+    """{path: value} of the entries whose path starts with ``prefix``,
+    the prefix removed (``subtree(ckpt, "params/")``)."""
+    n = len(prefix)
+    return {k[n:]: v for k, v in arrays.items() if k.startswith(prefix)}
+
+
+def adamw_from_reference(arrays: Mapping[str, Any], device="cuda"):
+    """The port's :class:`~repro_torch.optim.AdamWState` on ``device``
+    from the reference's, flattened: ``.count`` (int32 scalar),
+    ``.mu/<path>`` and ``.nu/<path>`` (float32, stacked as the
+    reference stacks them)."""
+    from repro_torch.optim import AdamWState
+
+    dev = resolve_device(device)
+    mu, nu = subtree(arrays, ".mu/"), subtree(arrays, ".nu/")
+    if set(mu) != set(nu) or not mu:
+        raise ValueError("AdamWState: .mu and .nu hold different paths")
+    count = reference_tensor(arrays[".count"])
+    if count.dim() != 0 or count.dtype != torch.int32:
+        raise ValueError(f".count: want an int32 scalar, got "
+                         f"{count.dtype} {tuple(count.shape)}")
+
+    def moments(tree):
+        out = {}
+        for k, a in tree.items():
+            t = reference_tensor(a)
+            if t.dtype != torch.float32:
+                raise TypeError(f"moment {k}: want float32, got {t.dtype}")
+            out[k] = t.to(dev)
+        return out
+    return AdamWState(count.to(dev), moments(mu), moments(nu))
+
+
+def htl_state_from_reference(arrays: Mapping[str, Any], device="cuda"):
+    """The port's :class:`~repro_torch.core.htl_trainer.HTLState` on
+    ``device`` from the reference's ``HTLState`` flattened:
+    ``.params/<path>`` (stacked (L, ...) over the collectors, unless the
+    mode is sync), ``.opt/...`` (as :func:`adamw_from_reference`) and
+    ``.step``."""
+    from repro_torch.core.htl_trainer import HTLState
+
+    dev = resolve_device(device)
+    params = {k: reference_tensor(a).to(dev)
+              for k, a in subtree(arrays, ".params/").items()}
+    step = reference_tensor(arrays[".step"]).to(dev)
+    return HTLState(params, adamw_from_reference(subtree(arrays, ".opt/"),
+                                                 dev), step)

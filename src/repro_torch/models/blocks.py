@@ -9,10 +9,16 @@ reference's dicts: ``p["wq"]``) built from the same
 :class:`~repro_torch.sharding.partitioning.ParamSpec` templates, in the
 reference's layouts (``wq`` is (D, H, hd), ``wo`` is (H, hd, D)).
 
-Prefill attention (:func:`gqa_attention`) always goes through
+Prefill attention (:func:`gqa_attention`) goes through
 :func:`~repro_torch.kernels.flash_attention.flash_attention_bshd`: on the
 card that is the hand-written kernel, on the CPU its plain version. There
-is no ``attention_impl`` switch. Decode attention is
+is no ``attention_impl`` switch. The one exception is the training loss:
+its caller passes ``plain=True`` and attention runs
+:func:`chunked_attention`, the reference's XLA path, on any device. The
+kernel has no backward, as the Pallas kernel it replaces has none, so the
+training path is the one place where the device does not pick the kernel
+(ROADMAP Queue 1 item 9d); the route is the caller's argument, never a
+fallback on an error, grad mode or a global. Decode attention is
 :func:`chunked_attention` in torch ops, as in the reference, whose decode
 never reaches the Pallas kernel (its ``q_offset`` is static, decode
 positions are per sequence). Cross-attention and MLA attend through
@@ -177,9 +183,10 @@ def gqa_project_qkv(p, x, cfg: ModelConfig):
 
 
 def gqa_attention(p, x, cfg: ModelConfig, *, positions=None, causal=None,
-                  window=None, rope=True):
-    """Full-sequence (prefill) GQA self-attention through the flash
-    kernel (module doc). Returns (output, (k, v))."""
+                  window=None, rope=True, plain=False):
+    """Full-sequence GQA self-attention through the flash kernel, or with
+    ``plain`` (the training loss) through :func:`chunked_attention`
+    (module doc). Returns (output, (k, v))."""
     B, S, D = x.shape
     q, k, v = gqa_project_qkv(p, x, cfg)
     if positions is None:
@@ -189,7 +196,8 @@ def gqa_attention(p, x, cfg: ModelConfig, *, positions=None, causal=None,
         k = apply_rope(k, positions, cfg.rope_theta)
     causal = cfg.causal if causal is None else causal
     window = cfg.sliding_window if window is None else window
-    out = flash_attention_bshd(q, k, v, causal=causal, window=window)
+    attend = chunked_attention if plain else flash_attention_bshd
+    out = attend(q, k, v, causal=causal, window=window)
     return out_proj(out, p["wo"]), (k, v)
 
 

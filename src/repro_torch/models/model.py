@@ -11,6 +11,8 @@ holds its parameters, in the reference's layouts:
 * ``template()``        — ParamSpec tree, the reference's (layers stacked)
 * ``init(seed)``        — draw the parameters (port's own stream)
 * ``load_params(flat)`` — copy {``/``-joined path: array} into the module
+* ``param_tree()``      — {path: parameter, or its per-layer parameters}
+* ``loss_fn(batch)``    — training loss (CE + MoE aux + MTP); ``forward``
 * ``prefill``           — full-context forward returning (last_logits, cache)
 * ``decode_step``       — one-token serve step against a fixed-size cache
 * ``cache_template``    — ParamSpec tree for the serve cache
@@ -20,12 +22,25 @@ Layers are ``ModuleList``s walked in a Python loop (the reference's
 them in the moe family, ``enc_layers`` for the audio encoder), or
 ``periods`` of ``{rec1, rec2, att}`` and a ``tail`` of RG-LRU sublayers
 (hybrid); ``load_params`` splits a stacked leaf of shape (L, ...) across
-them. The moe family's ``mtp`` group (DeepSeek's multi-token prediction)
-is loaded and never used by serving, and the MoE aux loss is dropped.
-Parameters live on the model's device in the config's dtype (bfloat16 at
-full size) and take no gradients: the port serves, and training
-(``loss_fn``, the optimiser, the HTL trainer) waits for ROADMAP Queue 1
-item 9d.
+them. Parameters live on the model's device in the config's dtype
+(bfloat16 at full size) and take no gradients until a trainer asks for
+them (:func:`repro_torch.launch.train.make_train_step`).
+
+Training: ``loss_fn`` adds the MoE aux loss of every MoE layer and, for
+the moe family's ``mtp`` group (DeepSeek's multi-token prediction, unused
+by serving), ``MTP_LOSS_COEF`` times its cross-entropy. It runs the plain
+route of every mixer (``plain=True``: ``chunked_attention``,
+``ssd_chunked``, ``rglru_scan_ref``, the reference's XLA path), on the
+card too: the kernels have no backward, as the Pallas kernels they
+replace have none, so this is the one path where the device does not
+pick the kernel (ROADMAP Queue 1 item 9d). ``cfg.remat`` other than
+``"none"`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``): ``"full"``, and ``"dots"`` too (the
+reference's ``checkpoint_dots`` keeps matmul outputs; no config uses it,
+and here it recomputes like ``"full"``). Remat changes no value. The loss also runs under ``torch.func.functional_call`` with a
+{name: tensor} dict (:meth:`Model.named_from_tree`): the checkpointed
+layers are handed their tensors, so a recompute never reads the module's
+own parameters back.
 
 The decode cache is updated in place: ``decode_step`` writes the new K/V
 or MLA latent entries into the buffers it is given (or rolls a window
@@ -39,6 +54,7 @@ from typing import Any, Dict, Mapping
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -108,27 +124,31 @@ def _hybrid_period(cfg: ModelConfig) -> dict:
 # Block forward functions
 # ---------------------------------------------------------------------------
 
+MTP_LOSS_COEF = 0.1
+
+
 def _ffn(p, x, cfg: ModelConfig):
-    """The block's MLP or MoE FFN (the MoE aux loss is dropped: serving).
+    """The block's MLP or MoE FFN: (y, MoE aux loss, 0.0 for an MLP).
     The reference's ``expert_parallel="shard_map"`` selects
     ``moe_ffn_shard_map``, which is :func:`moe_ffn` without a mesh."""
     if "moe" not in p:
-        return mlp(p["mlp"], x)
-    return moe_ffn(p["moe"], x, cfg)[0]
+        return mlp(p["mlp"], x), 0.0
+    return moe_ffn(p["moe"], x, cfg)
 
 
-def _attn_block(p, h, cfg: ModelConfig):
-    """One attention block over the full sequence. Returns (h, cache
-    entries): (ckv,) for MLA, (k, v) for GQA."""
+def _attn_block(p, h, cfg: ModelConfig, plain=False):
+    """One attention block over the full sequence. Returns (h, MoE aux
+    loss, cache entries): (ckv,) for MLA, (k, v) for GQA."""
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         a, ckv = mla_attention(p["attn"], x, cfg)
         cache = (ckv,)
     else:
-        a, cache = gqa_attention(p["attn"], x, cfg)
+        a, cache = gqa_attention(p["attn"], x, cfg, plain=plain)
     h = h + a
     x2 = rmsnorm(h, p["ln2"], cfg.norm_eps)
-    return h + _ffn(p, x2, cfg), cache
+    f, aux = _ffn(p, x2, cfg)
+    return h + f, aux, cache
 
 
 def _attn_block_decode(p, h, cfg: ModelConfig, cache_slice, pos, *,
@@ -143,15 +163,15 @@ def _attn_block_decode(p, h, cfg: ModelConfig, cache_slice, pos, *,
         h = h + decode(p["attn"], x, cache_slice["k"], cache_slice["v"], cfg,
                        pos)
     x2 = rmsnorm(h, p["ln2"], cfg.norm_eps)
-    return h + _ffn(p, x2, cfg)
+    return h + _ffn(p, x2, cfg)[0]
 
 
-def _encdec_block(p, h, enc_out, cfg: ModelConfig):
+def _encdec_block(p, h, enc_out, cfg: ModelConfig, plain=False):
     """One decoder block of the audio family over the full sequence:
     causal self-attention, cross-attention to the encoder output, MLP.
     Returns (h, (k, v, xk, xv))."""
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
-    a, (k, v) = gqa_attention(p["attn"], x, cfg)
+    a, (k, v) = gqa_attention(p["attn"], x, cfg, plain=plain)
     h = h + a
     xq = rmsnorm(h, p["lnx"], cfg.norm_eps)
     ek = _proj_heads(enc_out, p["xattn"]["wk"])
@@ -231,16 +251,16 @@ def _gqa_decode_window(p, x, ck, cv, cfg, pos):
     return out_proj(out, p["wo"])
 
 
-def _hybrid_sub(p, h, cfg: ModelConfig, kind: str):
+def _hybrid_sub(p, h, cfg: ModelConfig, kind: str, plain=False):
     """One hybrid sublayer (mixer + MLP) over the full sequence. Returns
     (h, state): (h_last, conv_tail) for RG-LRU, the last ``window`` keys
     and values for local attention."""
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     if kind == "rglru":
-        y, st = rglru.rglru_forward(p["mix"], x, cfg)
+        y, st = rglru.rglru_forward(p["mix"], x, cfg, plain=plain)
     else:
         win = cfg.rglru.window
-        y, (k, v) = gqa_attention(p["mix"], x, cfg, window=win)
+        y, (k, v) = gqa_attention(p["mix"], x, cfg, window=win, plain=plain)
         w = min(win, k.shape[1])
         st = (k[:, -w:], v[:, -w:])
     h = h + y
@@ -391,6 +411,39 @@ class Model(nn.Module):
         else:
             dst.copy_(src)
 
+    def param_tree(self) -> Dict[str, Any]:
+        """{reference path: parameter}, a stacked leaf as the list of its
+        per-layer parameters (the optimiser's tree,
+        :mod:`repro_torch.optim.adamw`). A stacked group without layers
+        (a reduced hybrid's ``periods``) gives an empty tensor of the
+        reference's (0, ...) shape, which no gradient reaches."""
+        out = {}
+        for path, spec in flatten(self.template()):
+            leaf = self._targets(path)
+            if isinstance(leaf, list) and not leaf:
+                leaf = torch.zeros(spec.shape, device=self.device,
+                                   dtype=torch_dtype(spec.dtype or
+                                                     self.dtype))
+            out[path] = leaf
+        return out
+
+    def named_from_tree(self, tree: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """{module parameter name: tensor} for
+        ``torch.func.functional_call`` from {reference path: tensor in the
+        reference's shape}; a stacked leaf is split into its layers' rows
+        (views, so gradients reach the stacked tensor)."""
+        out = {}
+        for path, t in tree.items():
+            head, _, sub = path.partition("/")
+            if head in self.STACKED:
+                name = sub.replace("/", ".")
+                for l, row in enumerate(t.unbind(0)):
+                    out[f"{head}.{l}.{name}"] = row
+            else:
+                out["top." + path.replace("/", ".")] = t
+        return out
+
     @torch.no_grad()
     def init(self, seed: int = 0) -> "Model":
         """Draw every parameter on the model's device (the reference's
@@ -421,47 +474,64 @@ class Model(nn.Module):
         return h @ self.top["lm_head"]
 
     # ---------------------------------------------------------- trunk passes
-    def _trunk(self, h, *, collect_cache=False, enc_out=None):
-        """Full-sequence pass over all layers (the audio decoder attends
-        to ``enc_out``). Returns (h, caches): per cache leaf name, the list
-        of per-layer entries (empty unless ``collect_cache``)."""
+    def _bodies(self, enc_out, plain):
+        """(layers, body, cache leaf names) in the order the trunk runs
+        them; ``body(p, h)`` returns (h, MoE aux loss, cache entries)."""
         cfg = self.cfg
-        caches: Dict[str, list] = {}
-
-        def keep(names, values):
-            if collect_cache:
-                for name, value in zip(names, values):
-                    caches.setdefault(name, []).append(value)
-
         if cfg.family in ("dense", "vlm", "moe"):
             names = ("ckv",) if cfg.mla is not None else ("k", "v")
-            for p_l in self._attn_layers():
-                h, entries = _attn_block(p_l, h, cfg)
-                keep(names, entries)
-        elif cfg.family == "audio":
-            for p_l in self.layers:
-                h, entries = _encdec_block(p_l, h, enc_out, cfg)
-                keep(_ENCDEC_CACHE, entries)
-        elif cfg.family == "ssm":
-            for p_l in self.layers:
-                x = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
-                y, st = ssd.ssd_forward(p_l["mixer"], x, cfg)
-                h = h + y
-                keep(("state", "conv"), st)
-        else:
-            for p_l in self.periods:
-                for sub, kind, names in _PERIOD_CACHE:
-                    h, st = _hybrid_sub(p_l[sub], h, cfg, kind)
-                    keep(names, st)
-            for p_l in self.tail:
-                h, st = _hybrid_sub(p_l, h, cfg, "rglru")
-                keep(_TAIL_CACHE, st)
-        return h, caches
+            return [(self._attn_layers(), lambda p, h: _attn_block(
+                p, h, cfg, plain), names)]
+        if cfg.family == "audio":
+            def dec(p, h):
+                h, entries = _encdec_block(p, h, enc_out, cfg, plain)
+                return h, 0.0, entries
+            return [(self.layers, dec, _ENCDEC_CACHE)]
+        if cfg.family == "ssm":
+            def ssm(p, h):
+                x = rmsnorm(h, p["ln1"], cfg.norm_eps)
+                y, st = ssd.ssd_forward(p["mixer"], x, cfg, plain=plain)
+                return h + y, 0.0, st
+            return [(self.layers, ssm, ("state", "conv"))]
 
-    def _encode(self, enc_embeds):
+        def period(p, h):
+            sts = ()
+            for sub, kind, _ in _PERIOD_CACHE:
+                h, st = _hybrid_sub(p[sub], h, cfg, kind, plain)
+                sts += st
+            return h, 0.0, sts
+
+        def tail(p, h):
+            h, st = _hybrid_sub(p, h, cfg, "rglru", plain)
+            return h, 0.0, st
+        return [(self.periods, period,
+                 sum((names for _, _, names in _PERIOD_CACHE), ())),
+                (self.tail, tail, _TAIL_CACHE)]
+
+    def _trunk(self, h, *, collect_cache=False, enc_out=None, plain=False,
+               remat=False):
+        """Full-sequence pass over all layers (the audio decoder attends
+        to ``enc_out``); ``plain`` takes every mixer's plain route,
+        ``remat`` recomputes each layer (a hybrid period) in the backward
+        pass. Returns (h, MoE aux loss summed over layers, caches): per
+        cache leaf name, the list of per-layer entries (empty unless
+        ``collect_cache``)."""
+        caches: Dict[str, list] = {}
+        aux = 0.0
+        for layers, body, names in self._bodies(enc_out, plain):
+            for p_l in layers:
+                h, a, entries = _run(body, p_l, h, remat)
+                aux = aux + a
+                if collect_cache:
+                    for name, value in zip(names, entries):
+                        caches.setdefault(name, []).append(value)
+        return h, aux, caches
+
+    def _encode(self, enc_embeds, *, plain=False, remat=False):
         """The audio encoder over precomputed (stub-frontend) frame
         embeddings: sinusoidal positions, then non-causal self-attention
-        without RoPE (through the flash kernel) and an MLP per layer."""
+        without RoPE (through the flash kernel, or with ``plain`` through
+        ``chunked_attention``) and an MLP per layer."""
         cfg = self.cfg
         h = enc_embeds.to(self.dtype)
         S, d = h.shape[1], h.shape[2]
@@ -471,19 +541,72 @@ class Model(nn.Module):
         angle = pos / torch.pow(10000.0, dim / d)
         pe = torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
         h = h + pe[None].to(self.dtype)
-        for p_l in self.enc_layers:
-            x = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
-            a, _ = gqa_attention(p_l["attn"], x, cfg, causal=False,
-                                 rope=False)
+
+        def layer(p, h):
+            x = rmsnorm(h, p["ln1"], cfg.norm_eps)
+            a, _ = gqa_attention(p["attn"], x, cfg, causal=False,
+                                 rope=False, plain=plain)
             h = h + a
-            h = h + mlp(p_l["mlp"], rmsnorm(h, p_l["ln2"], cfg.norm_eps))
+            return h + mlp(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps)), \
+                0.0, ()
+        for p_l in self.enc_layers:
+            h = _run(layer, p_l, h, remat)[0]
         return rmsnorm(h, self.top["enc_norm"], cfg.norm_eps)
 
+    # -------------------------------------------------------------- training
     def loss_fn(self, batch):
-        """The training loss (cross-entropy, MoE aux, MTP): not ported."""
-        raise NotImplementedError(
-            "training (loss_fn, optim/, the HTL trainer, launch/train.py) "
-            "is not ported yet: ROADMAP Queue 1 item 9d")
+        """batch: int ``tokens`` and ``targets`` (B, S) on the model's
+        device, plus ``frontend_embeds`` (vlm: prepended, then sliced off
+        before the head) or ``encoder_embeds`` (audio). Returns (total,
+        metrics): total = CE + MoE aux (+ ``MTP_LOSS_COEF`` x MTP CE), a
+        0-d float32 tensor to differentiate, and the detached metrics
+        {"ce", "aux", "loss"[, "mtp"]}. Plain route, ``cfg.remat`` honoured
+        (module doc)."""
+        cfg = self.cfg
+        remat = cfg.remat != "none"
+        tokens, targets = batch["tokens"], batch["targets"]
+        h = self._embed(tokens)
+        enc_out = None
+        n_front = 0
+        if cfg.family == "audio":
+            enc_out = self._encode(batch["encoder_embeds"], plain=True,
+                                   remat=remat)
+        elif cfg.family == "vlm":
+            fe = batch["frontend_embeds"].to(self.dtype)
+            n_front = fe.shape[1]
+            h = torch.cat([fe, h], dim=1)
+        h, aux, _ = self._trunk(h, enc_out=enc_out, plain=True, remat=remat)
+        if n_front:
+            h = h[:, n_front:]
+        h = self._norm(h)
+        loss = _ce(self._head(h), targets)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        metrics = {"ce": loss.detach(), "aux": aux.detach()}
+        if cfg.num_mtp_modules:
+            mtp = self._mtp_loss(h, tokens, targets)
+            metrics["mtp"] = mtp.detach()
+            loss = loss + MTP_LOSS_COEF * mtp
+        total = loss + aux
+        metrics["loss"] = total.detach()
+        return total, metrics
+
+    def forward(self, batch):
+        """:meth:`loss_fn`, so that ``torch.func.functional_call`` runs
+        the loss under parameters given by name."""
+        return self.loss_fn(batch)
+
+    def _mtp_loss(self, h, tokens, targets):
+        """DeepSeek-V3 multi-token prediction: predict t+2 from (final-
+        normed h_t, the embedding of token t+1), through one MoE block
+        (its aux loss is not added, as in the reference)."""
+        cfg = self.cfg
+        m = self.top["mtp"]
+        h_in = rmsnorm(h[:, :-1], m["norm_h"], cfg.norm_eps)
+        e_in = rmsnorm(self._embed(tokens[:, 1:]), m["norm_e"], cfg.norm_eps)
+        x = torch.cat([h_in, e_in], dim=-1) @ m["proj"]
+        x2, _, _ = _attn_block(m["block"], x, cfg, plain=True)
+        x2 = rmsnorm(x2, m["final_norm"], cfg.norm_eps)
+        return _ce(self._head(x2), targets[:, 1:])
 
     # --------------------------------------------------------------- serving
     @torch.no_grad()
@@ -500,7 +623,7 @@ class Model(nn.Module):
             enc_out = self._encode(batch["encoder_embeds"])
         elif cfg.family == "vlm":
             h = torch.cat([batch["frontend_embeds"].to(self.dtype), h], dim=1)
-        h, caches = self._trunk(h, collect_cache=True, enc_out=enc_out)
+        h, _, caches = self._trunk(h, collect_cache=True, enc_out=enc_out)
         logits = self._head(self._norm(h[:, -1:]))[:, 0]
         return logits, self._pack_cache(caches, tokens.shape[0], h.shape[1])
 
@@ -616,6 +739,24 @@ class Model(nn.Module):
                 h = _hybrid_sub_decode(p_l, h, cfg, "rglru", st, pos)
         logits = self._head(self._norm(h))[:, 0]
         return logits, cache
+
+
+def _run(body, p, h, remat: bool):
+    """``body(p, h)``, or with ``remat`` under ``torch.utils.checkpoint``
+    (non-reentrant), handed the layer's tensors (a nested dict) rather
+    than its module, so that the recompute in the backward pass sees the
+    tensors of the forward pass (those of a ``functional_call`` too)."""
+    if not remat:
+        return body(p, h)
+    return checkpoint(body, p.tensors(), h, use_reentrant=False)
+
+
+def _ce(logits, targets):
+    """Mean token cross-entropy, in float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (logz - gold).mean()
 
 
 def build_model(cfg: ModelConfig, *, device="cuda", dtype=None) -> Model:

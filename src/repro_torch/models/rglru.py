@@ -10,8 +10,11 @@ Temporal mixing = gated linear recurrence:
 Prefill evaluates the recurrence through
 :func:`~repro_torch.kernels.rglru_scan.rglru_scan`: on the card the
 hand-written kernel, on the CPU its plain version
-:func:`rglru_scan_ref` (the reference's log-depth scan). Decode is the
-O(1) step in torch ops and writes the state and conv caches in place.
+:func:`rglru_scan_ref` (the reference's log-depth scan). The training
+loss passes ``plain=True`` and runs :func:`rglru_scan_ref` on any device,
+since the kernel has no backward: the one place where the device does
+not pick the kernel (ROADMAP Queue 1 item 9d). Decode is the O(1) step
+in torch ops and writes the state and conv caches in place.
 """
 from __future__ import annotations
 
@@ -19,8 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rglru_scan import (  # noqa: F401
-    rglru_scan, rglru_scan_ref)
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.models.ssd import _causal_conv  # the same depthwise conv
 from repro_torch.sharding.partitioning import ParamSpec
 
@@ -67,14 +69,16 @@ def _gates(u, p):
     return a, gated_in
 
 
-def rglru_forward(p, x, cfg: ModelConfig):
-    """x: (B,S,D) -> (y, (h_final, conv_tail))."""
+def rglru_forward(p, x, cfg: ModelConfig, *, plain=False):
+    """x: (B,S,D) -> (y, (h_final, conv_tail)); ``plain`` takes
+    :func:`rglru_scan_ref` (module doc)."""
     B, S, D = x.shape
     y_branch = F.gelu(x @ p["w_y"], approximate="tanh")   # jax.nn.gelu
     u_pre = x @ p["w_x"]
     u = _causal_conv(u_pre, p["conv_w"], p["conv_b"])
     a, gated_in = _gates(u, p)
-    h = rglru_scan(a, gated_in)                         # (B,S,W) f32
+    scan = rglru_scan_ref if plain else rglru_scan
+    h = scan(a, gated_in)                               # (B,S,W) f32
     h = h.to(x.dtype)
     out = (h * y_branch) @ p["w_out"]
     # the reference recomputes x @ w_x here; the pre-conv u is the same

@@ -4,7 +4,10 @@
 Prefill runs the chunked scan through
 :func:`~repro_torch.kernels.ssd_scan.ssd_scan`: on the card that is the
 hand-written kernel, on the CPU its plain version :func:`ssd_chunked`
-(the reference's XLA path). There is no ``attention_impl`` switch.
+(the reference's XLA path). There is no ``attention_impl`` switch; the
+training loss passes ``plain=True`` and runs :func:`ssd_chunked` on any
+device, since the kernel has no backward: the one place where the device
+does not pick the kernel (ROADMAP Queue 1 item 9d).
 Decode is the O(1) recurrent step in torch ops, as in the reference,
 whose decode never reaches the Pallas kernel; it writes the state and
 conv caches it is given in place.
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan  # noqa: F401
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 from repro_torch.sharding.partitioning import ParamSpec
 
 
@@ -69,10 +72,11 @@ def _split_xbc(xbc, d_in, N):
     return xbc[..., :d_in], xbc[..., d_in:d_in + N], xbc[..., d_in + N:]
 
 
-def ssd_forward(p, x, cfg: ModelConfig):
+def ssd_forward(p, x, cfg: ModelConfig, *, plain=False):
     """Full-sequence SSD mixer. x: (B,S,D) -> (y, (ssm_state, conv_tail)).
     x, B and C reach the scan as views of the conv output (the kernel
-    reads them through strides)."""
+    reads them through strides); ``plain`` takes :func:`ssd_chunked`
+    (module doc)."""
     B, S, D = x.shape
     s = cfg.ssm
     d_in, nh, P, N = ssd_dims(cfg)
@@ -85,7 +89,10 @@ def ssd_forward(p, x, cfg: ModelConfig):
     dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
 
-    y, h_final = ssd_scan(xs, dt, A, Bm, Cm, chunk=s.chunk_size)
+    if plain:
+        y, h_final = ssd_chunked(xs, dt, A, Bm, Cm, s.chunk_size)
+    else:
+        y, h_final = ssd_scan(xs, dt, A, Bm, Cm, chunk=s.chunk_size)
     y = y + xs * p["D_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(B, S, d_in)
     y = _gated_rmsnorm(y, z, p["gate_norm"], cfg.norm_eps)

@@ -103,6 +103,14 @@ def iter_init(template, seed: int = 0, default_dtype=torch.float32,
         yield path, init_leaf(spec, gen, default_dtype, device)
 
 
+def template_bytes(template, default_dtype=torch.bfloat16) -> int:
+    """Bytes of every leaf of a template, each in its own dtype or
+    ``default_dtype``."""
+    return sum(math.prod(s.shape) *
+               torch_dtype(s.dtype or default_dtype).itemsize
+               for _, s in flatten(template))
+
+
 def init_params(template, seed: int = 0, default_dtype=torch.float32,
                 device=DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
     """Materialise a template: {``/``-joined path: tensor on ``device``}."""
@@ -131,6 +139,14 @@ class ParamModule(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+    def tensors(self) -> dict:
+        """The current tensors as nested dicts, indexed like the module
+        (those of a ``torch.func.functional_call`` while one runs)."""
+        out = {name: getattr(self, name) for name in self._parameters}
+        out.update((name, mod.tensors()) for name, mod in
+                   self._modules.items())
+        return out
 
     def leaf(self, path: str) -> torch.Tensor:
         """The parameter at a ``/``-joined path."""

@@ -32,7 +32,16 @@ backends (devices, processes, inline hosts) on the card byte-equal to
 the sequential card run; the MoE dispatch on the card selecting what it
 selects on the CPU (bfloat16 ties included), the MoE FFN bitwise
 deterministic on the card and within 1e-5 of the CPU in float32, and the
-reduced MLA, MoE, vlm and audio models on the card against the CPU."""
+reduced MLA, MoE, vlm and audio models on the card against the CPU.
+
+Training: ``loss_fn`` on a card model launches no kernel (the plain route)
+and gives every parameter a finite gradient, while ``prefill`` on the same
+model launches flash, ``ssd_scan`` and ``rglru_scan`` as the serve path
+counts them; the loss and its gradients on the card within 1e-5 relative
+and 1e-4 of each leaf's max |g| (+1e-9) of the CPU's (float32 reduction
+order) for every reduced family; an AdamW step on the card within 1e-6
+relative of the CPU's; the HTL trainer's local and transfer phases on
+the card against the CPU within the CPU parity tests' bounds."""
 import dataclasses
 
 import numpy as np
@@ -44,10 +53,11 @@ from chip_smoke import (CITY_MEMORY_RATIO, CITY_SMALL, CITY_WINDOWS,
                         REDUCED,
                         REDUCED_LOGIT_RTOL, RGLRU_EXTRA, RGLRU_SHAPES,
                         RGLRU_TOL,
-                        SCAN_F1_ATOL, SSD_SHAPES, SSD_TOL, flash_inputs,
-                        flash_kwargs, kernel_inputs, reduced_card_vs_cpu,
+                        SCAN_F1_ATOL, SSD_SHAPES, SSD_TOL, TRAIN_GRAD_RTOL,
+                        TRAIN_LOSS_RTOL, flash_inputs, flash_kwargs,
+                        kernel_inputs, lm_batch, reduced_card_vs_cpu,
                         rel_err, rglru_inputs, small_city_card_vs_cpu,
-                        ssd_inputs, step_inputs)
+                        ssd_inputs, step_inputs, train_card_vs_cpu)
 from repro_torch.core import scenario
 from repro_torch.data.synthetic_covtype import make_covtype_like
 from repro_torch.kernels import flash_attention as fa
@@ -744,3 +754,135 @@ def test_host_only_guard_refuses_card_tensors(cuda):
 
     with pytest.raises(TypeError, match="cuda"):
         assert_host_only({"x": [torch.zeros(2, device=cuda)]})
+
+
+# ------------------------------------------------------------- training
+# (arch, num_layers, launches of each kernel per prefill of the reduced
+# config): attention layers (the audio encoder's too), SSD layers, RG-LRU
+# sublayers
+TRAIN_KERNEL_CASES = [
+    ("llama3.2-3b", None, {"flash_attention": 2}),
+    ("mamba2-1.3b", None, {"ssd_scan": 2}),
+    ("recurrentgemma-9b", 5, {"rglru_scan": 4, "flash_attention": 1}),
+    ("whisper-medium", None, {"flash_attention": 4})]
+KERNEL_MODS = {"flash_attention": fa, "ssd_scan": ss, "rglru_scan": rg}
+
+
+@pytest.mark.parametrize("arch,num_layers,per_prefill", TRAIN_KERNEL_CASES,
+                         ids=[c[0] for c in TRAIN_KERNEL_CASES])
+def test_loss_on_the_card_takes_the_plain_route(cuda, arch, num_layers,
+                                                per_prefill):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    model = build_model(cfg, device=cuda).init(0).requires_grad_(True)
+    batch = lm_batch(cfg, 2, 64, seed=1, device=cuda)
+    for mod in KERNEL_MODS.values():
+        mod.reset_launches()
+    total, _ = model.loss_fn(batch)
+    total.backward()
+    assert all(mod.launches == 0 for mod in KERNEL_MODS.values())
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), \
+            name
+    model.prefill(batch)
+    assert {n: KERNEL_MODS[n].launches for n in per_prefill} == per_prefill
+
+
+@pytest.mark.parametrize("arch,num_layers", REDUCED,
+                         ids=[a for a, _ in REDUCED])
+def test_loss_and_gradients_on_the_card_match_the_cpu(cuda, arch,
+                                                      num_layers):
+    loss_err, grad_err, leaf = train_card_vs_cpu(arch,
+                                                 num_layers=num_layers)
+    assert loss_err <= TRAIN_LOSS_RTOL
+    assert grad_err <= TRAIN_GRAD_RTOL, leaf
+
+
+def test_adamw_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.optim import adamw_init, adamw_update
+
+    g = torch.Generator().manual_seed(0)
+    shapes = {"embed": (512, 64), "final_norm": (64,),
+              "layers/ln1": (3, 64), "layers/w": (3, 64, 96)}
+
+    def tree(dev, scale=1.0):
+        out = {}
+        for k, shape in shapes.items():
+            x = (scale * torch.randn(shape, generator=g)).to(dev)
+            out[k] = list(x.unbind(0)) if k.startswith("layers/") else x
+        return out
+
+    cfg = OptimizerConfig(lr=1e-2, weight_decay=0.1, grad_clip=1.0)
+
+    def run(dev):
+        g.manual_seed(0)
+        p = tree(dev)
+        o = adamw_init(p)
+        norms = []
+        for _ in range(3):
+            p, o, n = adamw_update(tree(dev, 3.0), o, p, 1e-2, cfg)
+            norms.append(float(n))
+        return p, o, norms
+    (pc, oc, nc), (pg, og, ng) = run("cpu"), run(cuda)
+    np.testing.assert_allclose(ng, nc, rtol=1e-6)
+    for k in shapes:
+        for a, b in zip(pg[k] if isinstance(pg[k], list) else [pg[k]],
+                        pc[k] if isinstance(pc[k], list) else [pc[k]]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=0)
+        torch.testing.assert_close(og.mu[k].cpu(), oc.mu[k], rtol=1e-6,
+                                   atol=0)
+        torch.testing.assert_close(og.nu[k].cpu(), oc.nu[k], rtol=1e-6,
+                                   atol=0)
+    assert int(og.count) == int(oc.count) == 3
+
+
+@pytest.mark.parametrize("mode", ["a2a", "star"])
+def test_htl_trainer_on_the_card_matches_the_cpu(cuda, mode):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import HTLConfig, OptimizerConfig
+    from repro_torch.core.htl_trainer import HTLState, HTLTrainer
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWState
+
+    cfg = dataclasses.replace(
+        get_config("llama3.2-3b").reduced(), num_layers=2, d_model=64,
+        num_heads=2, num_kv_heads=2, head_dim=32, d_ff=128, vocab_size=256)
+    L, H = 4, 3
+    opt_cfg = OptimizerConfig(lr=3e-3, warmup_steps=2, total_steps=50)
+    htl = HTLConfig(mode=mode, num_collectors=L, local_steps=H,
+                    mixing_steps=3)
+
+    def copy_to(st, dev):
+        tree = lambda t: {k: v.to(dev, copy=True) for k, v in t.items()}
+        return HTLState(tree(st.params), AdamWState(
+            st.opt.count.to(dev, copy=True), tree(st.opt.mu),
+            tree(st.opt.nu)), st.step.to(dev, copy=True))
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (H + 1, L, 4, 33)))
+    tr = HTLTrainer(build_model(cfg, device="cpu"), opt_cfg, htl)
+    first = tr.init(0)
+
+    def run(dev):
+        tr = HTLTrainer(build_model(cfg, device=dev), opt_cfg, htl)
+        t = toks.to(dev)
+        st, losses = tr.local_phase(copy_to(first, dev),
+                                    {"tokens": t[:H, ..., :-1],
+                                     "targets": t[:H, ..., 1:]})
+        st = tr.transfer_phase(st, {"tokens": t[H, ..., :-1],
+                                    "targets": t[H, ..., 1:]})
+        return copy_to(st, "cpu"), losses.cpu()
+    lr_sum = sum(float(tr._sched(i)) for i in range(H))
+    (sc, lc), (sg, lg) = run("cpu"), run(cuda)
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=0)
+    for k, v in sc.params.items():
+        bound = 1e-5 * float(v.abs().max()) + 1e-2 * lr_sum
+        assert float((sg.params[k] - v).abs().max()) <= bound, k
+    for k, v in sc.opt.nu.items():
+        assert float((sg.opt.nu[k] - v).abs().max()) <= \
+            1e-4 * float(v.abs().max()) + 1e-30, k

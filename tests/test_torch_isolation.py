@@ -53,7 +53,10 @@ def test_port_modules_import_without_jax_or_repro():
             "repro_torch.core.pareto", "repro_torch.service",
             "repro_torch.service.statsd", "repro_torch.service.cache",
             "repro_torch.service.server",
-            "repro_torch.service.client"} <= set(names)
+            "repro_torch.service.client", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+            "repro_torch.launch.train",
+            "repro_torch.core.htl_trainer"} <= set(names)
     code = "\n".join(
         ["import importlib, sys"]
         + [f"importlib.import_module({n!r})" for n in names]
@@ -70,6 +73,9 @@ def test_port_modules_import_without_jax_or_repro():
            "    normalised_json, lm_batch, cache_len, serve_config)",
            "from chip_smoke import (phase_orchestration, phase_backends,",
            "    phase_hosts, phase_service, phase_pareto, PARETO_SEARCHES)",
+           "from chip_smoke import (phase_train, phase_train_card_vs_cpu,",
+           "    phase_train_resume, phase_htl, train_card_vs_cpu,",
+           "    htl_config)",
            "bad = sorted(m for m in sys.modules",
            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))",
            "assert not bad, bad",
@@ -188,11 +194,15 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unported_families_raise_naming_their_roadmap_item():
-    """Every architecture of the reference is registered and builds; what
-    is left unported is training, whose entry point names its ROADMAP
-    item."""
+    """Every architecture of the reference is registered, builds and
+    trains (a finite loss and gradients on the CPU); what is left
+    unported needs a mesh, and its entry points name ROADMAP Queue 1
+    item 10: the HTL trainer's pod-wise local phase."""
     import repro_torch.configs as configs
     from repro_torch.configs import ALL_ARCHS, get_config
+    from repro_torch.configs.base import HTLConfig, OptimizerConfig
+    from repro_torch.core.htl_trainer import HTLTrainer
+    from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.models import build_model
 
     assert not hasattr(configs, "NOT_PORTED")
@@ -200,9 +210,67 @@ def test_unported_families_raise_naming_their_roadmap_item():
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
     for arch in ALL_ARCHS:
-        model = build_model(get_config(arch).reduced(), device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9d"):
-            model.loss_fn({})
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg, device="cpu").init(0).requires_grad_(True)
+        batch = make_lm_batch(
+            cfg.vocab_size, 1, 16, d_model=cfg.d_model,
+            frontend_tokens=(cfg.frontend.num_tokens
+                             if cfg.family == "vlm" else 0),
+            encoder_len=(cfg.encoder_seq_len
+                         if cfg.family == "audio" else 0), device="cpu")
+        total, _ = model.loss_fn(batch)
+        total.backward()
+        assert bool(torch.isfinite(total)), arch
+        assert model.top["embed"].grad is not None, arch
+    trainer = HTLTrainer(model, OptimizerConfig(), HTLConfig())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        trainer.local_phase_podwise(None, None, None)
+
+
+def test_training_modules_import_with_jax_blocked():
+    """The optimiser, the train driver and the HTL trainer import in an
+    interpreter where importing ``jax`` (or ``repro``) fails."""
+    code = "\n".join([
+        "import sys",
+        "class Block:",
+        "    def find_spec(self, name, path=None, target=None):",
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):",
+        "            raise ImportError('blocked: ' + name)",
+        "sys.meta_path.insert(0, Block())",
+        "import repro_torch.optim, repro_torch.launch.train",
+        "import repro_torch.core.htl_trainer, repro_torch.checkpoint",
+        "from repro_torch.optim import adamw_update, cosine_warmup_schedule",
+        "from repro_torch.launch.train import make_train_step, train_loop",
+        "from repro_torch.core.htl_trainer import HTLTrainer, HTLState",
+        "try:",
+        "    import jax",
+        "except ImportError:",
+        "    print('blocked')"])
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "blocked"
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import HTLConfig, OptimizerConfig
+    from repro_torch.core.htl_trainer import HTLTrainer
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("llama3.2-3b").reduced()
+    calls = [
+        lambda: train.train_loop("llama3.2-3b", steps=1),
+        lambda: train.main(["--arch", "llama3.2-3b", "--steps", "1"]),
+        lambda: HTLTrainer(build_model(cfg), OptimizerConfig(),
+                           HTLConfig()),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 REFERENCE_ARCHS = ["whisper-medium", "llava-next-mistral-7b", "mamba2-1.3b",
