@@ -161,7 +161,22 @@ failure raises and the script exits non-zero without printing a result:
    of 256 per step split over the collectors: 4 rounds each of ``sync``,
    ``star`` and ``a2a`` (``"gd"`` mixing, 4 steps), their round losses,
    seconds per round and ``round_traffic_bytes``; losses finite and
-   falling, every DC's hypothesis identical after each transfer.
+   falling, every DC's hypothesis identical after each transfer;
+22. validate — ``launch.validate`` on the 1x1 host mesh for every arch x
+   shape, with ``HBM_BYTES`` held equal to this card's total memory, and
+   llama3.2-3b's train state fitting and within 5% of the 38.5 GB PR 22
+   measured;
+23. dryrun — ``python -m repro_torch.launch.dryrun`` for llama3.2-3b
+   ``decode_32k`` on pod1 in its own process (256 ranks on the fake
+   backend, DTensor placements, meta shards): ``status`` ok, 256 devices,
+   FLOPs > 0;
+24. roofline — each served prefill and llama's train step traced on meta
+   tensors (``roofline.trace.analyze_trace``, the plain route with the
+   mixer regions' counts from ``roofline.costs``), the roofline terms on
+   the H100's peaks and the dominant one, beside the measured device time
+   and measured / roofline; and the reduced llama, mamba2 and
+   recurrentgemma traced on the kernel route (a card model) and on the
+   plain route: equal FLOPs.
 
 Then the whole script's seconds, the ``{"kernels": [...]}`` line (the
 four ported kernels, and the fused step as a fifth line of the
@@ -189,6 +204,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+# The kernels' work counts and their bound on the H100's peaks (the
+# kernel rows; the same counts are the roofline phase's mixer regions).
+from repro_torch.roofline.costs import (  # noqa: E402,F401
+    bound, flash_cost, flash_pairs, kernel_cost, rglru_cost, ssd_cost,
+    step_cost,
+)
+
 KERNEL_RTOL = 1e-5
 KERNEL_ATOL = 1e-5
 ENERGY_RTOL = 1e-6
@@ -212,8 +234,6 @@ PROFILE_LABEL, PROFILE_WINDOWS = "table3_a2a_4g", 5
 # hinge-subgradient kink or a test prediction, which moves an F1 value by
 # a few 1e-4; the CPU comparison of the two packages stays below 2e-3.
 F1_ATOL = 5e-3
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-F32_FLOPS_PER_S = 67e12          # H100 SXM float32, outside tensor cores
 GRID_SHAPES = [(L, R, D, 16) for L in (1, 8, 16, 32)
                for R in (1, 112, 448, 1120) for D in (11, 23)]
 # The (L, R, D, M) shapes that phases 7-8d give the loo_trials wrappers
@@ -253,8 +273,6 @@ LOO_EARLIER_US = dict(zip(GRID_SHAPES, [
 
 # flash_attention: the JAX sweep's bounds (tests/test_kernels.py:15)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-PEAK_FLOPS_PER_S = {"bfloat16": 989e12,    # H100 SXM tensor cores, dense
-                    "float32": F32_FLOPS_PER_S}
 FLASH_REPS = 10
 # The bf16 tensor-core flash kernel, one instantiation per head dim; none
 # may spill (ptxas report of the build).
@@ -443,6 +461,20 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-5, 1e-4, 1e-9
 # of each mode, the example's mixing steps and optimizer.
 HTL_COLLECTORS, HTL_LOCAL, HTL_SEQS, HTL_SEQ, HTL_ROUNDS = 4, 8, 8, 256, 4
 HTL_MIXING_STEPS = 4
+# ``validate``: llama3.2-3b's train state (bf16 weights and gradients,
+# float32 moments) on the 1x1 host mesh against the 38.5 GB PR 22's train
+# phase held (PERF.md, PR 22), within 5%.
+VALIDATE_TRAIN_STATE_BYTES, VALIDATE_RTOL = 38.5e9, 0.05
+# ``dryrun``: one combo of launch/dryrun.py in its own process (a fake
+# world of 256 ranks on the fake backend, DTensor placements).
+DRYRUN_COMBO = ("llama3.2-3b", "decode_32k", "pod1")
+DRYRUN_TIMEOUT_S = 300
+# ``roofline``: the reduced configs whose traced FLOPs must agree between
+# the kernel route (a card model) and the plain route (the mixer regions
+# count the same work either way); recurrentgemma with 5 layers, so a
+# period with attention runs.
+ROOFLINE_REDUCED = {"llama3.2-3b": None, "mamba2-1.3b": None,
+                    "recurrentgemma-9b": 5}
 HTL_MODES = ("sync", "star", "a2a")
 
 
@@ -528,23 +560,6 @@ def step_inputs(L, R, D, M, seed, device):
                         sel, src_mask))
 
 
-def kernel_cost(L, R, D, M):
-    """(bytes, flops) the function needs: every input read once, the
-    output written once; 2·R·D·M for the products plus 13 operations per
-    (row, candidate) for the epilogue and the row sum."""
-    floats = L * (R * D + D * M + R * M + 4 * R + 2 * M) + L * M
-    return 4 * floats, L * (2 * R * D * M + 13 * R * M)
-
-
-def step_cost(L, R, D, M):
-    """(bytes, flops) of the fused step: the scorer's inputs less zj and
-    dinv, plus diag_g, aty_m, sel, src_mask and z read once, objs, dinv and
-    zj written once; the scorer's operations plus 4·D·M for cc's squares
-    and ccᵀz and 7 per candidate for dinv and zj."""
-    floats = L * (R * D + D * M + R * M + 4 * R + 4 * M + D) + 3 * L * M
-    return 4 * floats, L * (2 * R * D * M + 13 * R * M + 4 * D * M + 7 * M)
-
-
 def device_time_us(fn, args, reps=TIMING_REPS) -> float:
     """Median device time of one call, by CUDA events. A sleep kernel
     queued ahead of each timed call keeps the card busy while the host
@@ -563,15 +578,6 @@ def device_time_us(fn, args, reps=TIMING_REPS) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) * 1e3 for a, b in pairs]))
-
-
-def bound(nbytes, flops, dtype):
-    """(bound µs, "bytes" or "operations"): the larger of the bytes at the
-    memory rate and the operations at the dtype's peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
-    t_ops = flops / PEAK_FLOPS_PER_S[dtype] * 1e6
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
 
 
 def floor_us() -> float:
@@ -660,24 +666,6 @@ def flash_kwargs(shape):
     return dict(causal=shape[6], window=shape[7], q_offset=shape[8])
 
 
-def flash_pairs(shape) -> int:
-    """(query, key) pairs the mask keeps, per (batch, head)."""
-    _, _, _, Sq, Skv, _, causal, window, q_offset, _ = shape
-    pos = q_offset + np.arange(Sq)
-    hi = np.minimum(Skv, pos + 1) if causal else np.full(Sq, Skv)
-    lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(Sq)
-    return int(np.maximum(0, hi - lo).sum())
-
-
-def flash_cost(shape):
-    """(bytes, flops) the function needs: q, k, v read once and o written
-    once; 2·2·d operations per kept (query, key) pair (q·k and p·v)."""
-    B, H, KV, Sq, Skv, d, *_, dtype = shape
-    item = 2 if dtype == "bfloat16" else 4
-    nbytes = item * d * B * (2 * H * Sq + 2 * KV * Skv)
-    return nbytes, 4 * B * H * d * flash_pairs(shape)
-
-
 def phase_flash(fa):
     t0 = time.perf_counter()
     rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
@@ -739,23 +727,6 @@ def ssd_inputs(shape, seed, device):
             (randn(B, S, N) * 0.5).to(dt_), (randn(B, S, N) * 0.5).to(dt_))
 
 
-def ssd_cost(shape):
-    """(bytes, flops) the function needs: x, dt, A, B, C read once, y and
-    the state written once. Per (batch, chunk of q steps) and per kept
-    (i >= j) pair of the chunk's q (q + 1) / 2: 2 N operations for the
-    scores C B^T, once for all heads (B and C are shared by the heads),
-    and 2 P per head for the masked scores times x; per head, 2 q N P for
-    the carried state's output C h^T and 2 q N P for the state update."""
-    B, S, H, P, N, Q, dtype = shape
-    item = 2 if dtype == "bfloat16" else 4
-    nbytes = item * (2 * B * S * H * P + 2 * B * S * N + B * H * P * N) \
-        + 4 * (B * S * H + H)
-    qs = [min(Q, S - c) for c in range(0, S, Q)]
-    flops = B * sum(q * (q + 1) * (N + H * P) + 4 * H * q * N * P
-                    for q in qs)
-    return nbytes, flops
-
-
 def phase_ssd(ss):
     t0 = time.perf_counter()
     rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
@@ -807,13 +778,6 @@ def rglru_inputs(shape, seed, device, offset=0):
     a = torch.sigmoid(torch.randn(full, generator=g, device=device))
     b = torch.randn(full, generator=g, device=device) * 0.5
     return a[..., offset:], b[..., offset:]
-
-
-def rglru_cost(shape):
-    """(bytes, flops): a and b read once, h written once, float32; one FMA
-    per element."""
-    B, S, W = shape
-    return 3 * 4 * B * S * W, 2 * B * S * W
 
 
 def rglru_rows():
@@ -1445,6 +1409,156 @@ def phase_htl():
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
+
+
+def phase_validate():
+    """The static validator on the 1x1 host mesh (everything on this card,
+    nothing sharded) for every arch x shape, with the card's memory
+    (``launch.validate.HBM_BYTES``, held against this card's total)."""
+    from repro_torch.configs import ALL_ARCHS, INPUT_SHAPES
+    from repro_torch.launch import validate as V
+
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    rows = [V.validate(a, s, mesh="host") for a in ALL_ARCHS
+            for s in INPUT_SHAPES]
+    table = {f"{r['arch']} {r['shape']}": {k: r[k] for k in r if k not in (
+        "arch", "shape")} for r in rows}
+    train = table["llama3.2-3b train_4k"]
+    err = abs(train["train_state_gib"] * 2**30 / VALIDATE_TRAIN_STATE_BYTES
+              - 1.0)
+    emit({"phase": "validate", "mesh": "host (1x1)",
+          "total_memory": total, "hbm_bytes": V.HBM_BYTES,
+          "llama_train_state_bytes": train["train_state_gib"] * 2**30,
+          "llama_train_state_rel_err_vs_measured": err,
+          "fits": sum(r.get("fits_hbm", False) for r in rows),
+          "skipped": sum(r["status"] == "skip" for r in rows),
+          "rows": table, "seconds": time.perf_counter() - t0})
+    check(total == V.HBM_BYTES, f"the card has {total} bytes, "
+                                f"launch.validate.HBM_BYTES {V.HBM_BYTES}")
+    check(train["fits_hbm"], "llama3.2-3b's train state does not fit")
+    check(err <= VALIDATE_RTOL, f"llama3.2-3b train state "
+          f"{train['train_state_gib']:.2f} GiB vs the measured 38.5 GB: "
+          f"{err:.3f}")
+
+
+def phase_dryrun():
+    """One dry-run combo in its own process: rank 0 of a 256-rank fake
+    world traces llama3.2-3b's decode step under DTensor placements."""
+    import tempfile
+
+    arch, shape, mesh = DRYRUN_COMBO
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", out,
+             "--force"], cwd=ROOT, capture_output=True, text=True,
+            timeout=DRYRUN_TIMEOUT_S,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        path = os.path.join(out, f"{arch}_{shape}_{mesh}.json")
+        rec = json.load(open(path)) if os.path.exists(path) else {}
+    emit({"phase": "dryrun", "combo": list(DRYRUN_COMBO),
+          "returncode": proc.returncode, "record": rec,
+          "stderr_tail": proc.stderr[-1500:] if proc.returncode else "",
+          "seconds": time.perf_counter() - t0})
+    check(proc.returncode == 0 and rec.get("status") == "ok",
+          f"dry-run of {DRYRUN_COMBO}: rc {proc.returncode}, "
+          f"{rec.get('traceback', proc.stderr[-800:])}")
+    check(rec["num_devices"] == 256 and rec["flops"] > 0,
+          f"dry-run record {rec}")
+
+
+def world1_roofline(cfg, shape, trace):
+    """The roofline terms of one traced call on one card (H100 peaks)."""
+    from repro_torch.roofline import analysis
+
+    rec = {"num_devices": 1, "flops": trace["flops"],
+           "bytes_accessed": trace["bytes"],
+           "analytic_bytes": analysis.analytic_memory_bytes(cfg, shape, 1),
+           "collectives": trace["collectives"],
+           "model_flops": analysis.model_flops_for(cfg, shape)}
+    return analysis.roofline_from_record(rec)
+
+
+def phase_roofline(served, train_out):
+    """Each served prefill (4 x 2048, full width, bf16) and llama's train
+    step traced on meta tensors (the plain route, with the mixer regions'
+    counts), their roofline terms on the H100's peaks beside the device
+    time the serve and train phases measured; then the kernel route and
+    the plain route of the reduced llama, mamba2 and recurrentgemma on the
+    card, whose traced FLOPs must agree."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape, OptimizerConfig
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.roofline.analysis import HW
+    from repro_torch.roofline.trace import analyze_trace
+
+    t0 = time.perf_counter()
+    rows = {}
+    for arch, out in served.items():
+        cfg = serve_config(arch)
+        prompt = SERVES[arch].get("prompt", SERVE_PROMPT)
+        batch = lm_batch(cfg, SERVE_BATCH, prompt, seed=0, device="meta")
+        model = build_model(cfg, device="meta")
+        t1 = time.perf_counter()
+        trace = analyze_trace(model.prefill, batch, plain=True)
+        shape = InputShape("prefill", cache_len(batch), SERVE_BATCH,
+                           "prefill")
+        rl = world1_roofline(cfg, shape, trace)
+        measured_s = out["prefill_device_ms"] / 1e3
+        rows[f"{arch} prefill"] = dict(
+            rl, flops=trace["flops"], traced_bytes=trace["bytes"],
+            regions=trace["regions"], measured_s=measured_s,
+            measured_by="torch.profiler device time",
+            measured_over_roofline=measured_s / rl["roofline_step_s"],
+            trace_s=time.perf_counter() - t1)
+        del model, batch
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, device="meta")
+    step = make_train_step(model, OptimizerConfig())
+    batch = {k: torch.zeros(TRAIN_BATCH, TRAIN_SEQ, dtype=torch.int32,
+                            device="meta") for k in ("tokens", "targets")}
+    t1 = time.perf_counter()
+    trace = analyze_trace(step, adamw_init(model.param_tree()), batch, 0)
+    rl = world1_roofline(cfg, InputShape("train", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"), trace)
+    measured_s = train_out["median_ms_after_first"] / 1e3
+    rows[f"{TRAIN_ARCH} train"] = dict(
+        rl, flops=trace["flops"], traced_bytes=trace["bytes"],
+        regions=trace["regions"], measured_s=measured_s,
+        measured_by="host clock around a synchronised step (median)",
+        measured_over_roofline=measured_s / rl["roofline_step_s"],
+        trace_s=time.perf_counter() - t1)
+    del model, step, batch
+
+    routes = {}
+    for arch, layers in ROOFLINE_REDUCED.items():
+        cfg = get_config(arch).reduced()
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        model = build_model(cfg).init(seed=0)
+        batch = lm_batch(cfg, 2, 64, seed=0)
+        kernel = analyze_trace(model.prefill, batch)
+        plain = analyze_trace(model.prefill, batch, plain=True)
+        routes[arch] = {"kernel_flops": kernel["flops"],
+                        "plain_flops": plain["flops"],
+                        "regions": kernel["regions"]}
+        check(kernel["flops"] == plain["flops"] > 0
+              and kernel["regions"] == plain["regions"],
+              f"{arch}: traced FLOPs differ between the kernel route "
+              f"({kernel['flops']}) and the plain route ({plain['flops']})")
+        del model
+    emit({"phase": "roofline", "hardware": {
+        "peak_flops": HW.peak_flops, "hbm_bw": HW.hbm_bw,
+        "nvlink_bw": HW.nvlink_bw, "ib_bw": HW.ib_bw},
+        "rows": rows, "routes": routes,
+        "seconds": time.perf_counter() - t0})
+    for name, r in rows.items():
+        check(r["flops"] > 0 and r["measured_over_roofline"] > 0,
+              f"roofline of {name}: {r}")
 
 
 def summaries(result):
@@ -2203,10 +2317,16 @@ def main() -> int:
     # CPU, checkpoint and resume, the hypothesis-transfer trainer
     lm_mods = {n: mods[n] for n in ("flash_attention", "ssd_scan",
                                     "rglru_scan")}
-    phase_train(lm_mods)
+    train_out = phase_train(lm_mods)
     phase_train_card_vs_cpu()
     phase_train_resume()
     phase_htl()
+
+    # 22.-24. the static validator on the card's memory, one dry-run
+    # combo in a fake world, each served step's roofline
+    phase_validate()
+    phase_dryrun()
+    phase_roofline(served, train_out)
 
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     head = next(r for r in rows

@@ -30,9 +30,13 @@ Mechanics (paper Algorithms 1 & 2, hypotheses = parameter trees):
 
 The loss is the model's training loss, so it takes the plain route of
 every mixer (``Model.loss_fn``). The traffic ledger counts logical
-transfers as the paper's energy ledger counts radio transfers. The
-production local phase (``local_phase_podwise``) needs the mesh of ROADMAP
-Queue 1 item 10.
+transfers as the paper's energy ledger counts radio transfers.
+
+Under a mesh (``launch/htl_dryrun.py``) the stacked collector dim is the
+'pod' axis: :meth:`HTLTrainer.local_phase_podwise` trains each pod's rows
+with no cross-pod collective, and :meth:`HTLTrainer.transfer_phase`
+gathers the hypotheses across pods once (the transfer itself) before it
+mixes them.
 """
 from __future__ import annotations
 
@@ -45,7 +49,10 @@ from repro_torch.configs.base import HTLConfig, OptimizerConfig
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.schedule import cosine_warmup_schedule
-from repro_torch.sharding.partitioning import init_params, template_bytes
+from repro_torch.sharding.partitioning import (
+    P, init_params, mesh_axes, template_bytes, to_placements,
+    use_compute_mesh,
+)
 
 
 class HTLState(NamedTuple):
@@ -57,6 +64,39 @@ class HTLState(NamedTuple):
 def _row(tree, i: int):
     """Collector ``i``'s slice of a stacked tree (views)."""
     return {k: x[i] for k, x in tree.items()}
+
+
+def _pick(tree, i: torch.Tensor):
+    """The slice at a 0-d index tensor (no host sync)."""
+    return {k: x.index_select(0, i.reshape(1)).squeeze(0)
+            for k, x in tree.items()}
+
+
+def _by_collector(fn, x):
+    """``fn`` of a stacked (L, ...) tensor, row by row: a DTensor sharded
+    over 'pod' is computed where its rows live (a manual region: the
+    pod-local rows in, an (L, ...) DTensor sharded over pods out)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor) or "pod" not in (
+            x.device_mesh.mesh_dim_names or ()):
+        return fn(x)
+    mesh = x.device_mesh
+    on_pods = to_placements(P("pod"), mesh)
+    local = x.redistribute(mesh, on_pods).to_local()
+    return DTensor.from_local(fn(local), mesh, on_pods, run_check=False)
+
+
+def _gather_hypotheses(x):
+    """A stacked leaf with every collector's hypothesis on every rank: a
+    DTensor sharded over 'pod' is gathered across pods (the hypothesis
+    transfer), anything else comes back as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or "pod" not in (
+            x.device_mesh.mesh_dim_names or ()):
+        return x
+    pl = list(x.placements)
+    pl[x.device_mesh.mesh_dim_names.index("pod")] = Replicate()
+    return x.redistribute(x.device_mesh, pl)
 
 
 class HTLTrainer:
@@ -127,7 +167,7 @@ class HTLTrainer:
             count, loss = single(params, opt, batch)
             return AdamWState(count, opt.mu, opt.nu), loss
         losses = []
-        for i in range(self.htl.num_collectors):
+        for i in range(batch["tokens"].shape[0]):
             o_i = AdamWState(opt.count, _row(opt.mu, i), _row(opt.nu, i))
             count, loss = single(_row(params, i), o_i, _row(batch, i))
             losses.append(loss)
@@ -149,23 +189,90 @@ class HTLTrainer:
         return HTLState(params, opt, step), torch.stack(losses)
 
     def local_phase_podwise(self, state: HTLState, batches, mesh):
-        """The production local phase (one hypothesis per pod of a mesh,
-        zero cross-pod traffic): needs the mesh of ROADMAP Queue 1 item
-        10, which the port does not have yet."""
-        raise NotImplementedError(
-            "local_phase_podwise needs a device mesh: ROADMAP Queue 1 item "
-            "10 (mesh, dry-run and roofline)")
+        """The production local phase: a manual region over the 'pod' axis
+        of ``mesh`` (a ``DeviceMesh`` with axes ("pod", "data", "model")).
+        Each pod trains its own L/pods rows of the stacked state on its
+        ("data", "model") sub-mesh, with no cross-pod collective by
+        construction; the optimizer's count stays shared (every pod
+        advances it alike). batches: {"tokens", "targets"} (H, L, ...).
+
+        DTensor leaves are laid out with their stacked dim over the pods
+        (their other dims keep their layout), and each rank's shard is seen
+        on the pod's sub-mesh without a copy, so the steps update the
+        returned state in place; the losses come back as an (L, H) DTensor
+        (the reference's out_specs P("pod"); :meth:`local_phase` gives
+        (H, L)). Plain leaves, the same full state on every rank, have this
+        pod's rows updated in place (the other pods' rows stay as they
+        were), and the losses are this pod's (L/pods, H) rows."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        L = self.htl.num_collectors
+        n_pod = mesh_axes(mesh)["pod"]
+        if L % n_pod:
+            raise ValueError(f"{L} collectors do not split over {n_pod} pods")
+        pod, per = mesh.get_local_rank("pod"), L // n_pod
+        i_pod = mesh.mesh_dim_names.index("pod")
+        sub = mesh["data", "model"]
+
+        def on_pods(t, dim=0):
+            """``t`` with its ``dim`` split over the pods."""
+            if not isinstance(t, DTensor):
+                return t
+            pl = list(t.placements)
+            pl[i_pod] = Shard(dim)
+            return t if tuple(pl) == tuple(t.placements) else \
+                t.redistribute(mesh, pl)
+
+        def pod_rows(t, dim=0):
+            """This pod's rows: a DTensor's shard on the sub-mesh (a view),
+            or a view of a plain tensor."""
+            if not isinstance(t, DTensor):
+                return t.narrow(dim, pod * per, per)
+            pl = [p for i, p in enumerate(t.placements) if i != i_pod]
+            return DTensor.from_local(t.to_local(), sub, pl, run_check=False)
+
+        trees = {name: {k: on_pods(v) for k, v in tree.items()}
+                 for name, tree in (("params", state.params),
+                                    ("mu", state.opt.mu),
+                                    ("nu", state.opt.nu))}
+        work = {name: {k: pod_rows(v) for k, v in tree.items()}
+                for name, tree in trees.items()}
+        b = {k: pod_rows(on_pods(v, 1), 1) for k, v in batches.items()}
+        opt, step = AdamWState(state.opt.count, work["mu"], work["nu"]), \
+            state.step
+        losses = []
+        with use_compute_mesh(sub):
+            for h in range(b["tokens"].shape[0]):
+                opt, loss = self._one_local_step(work["params"], opt,
+                                                 _row(b, h), step)
+                step = step + 1
+                losses.append(loss)
+        losses = torch.stack(losses).t()                  # (L/pods, H)
+        if isinstance(losses, DTensor):
+            pl = [Replicate()] * mesh.ndim
+            pl[i_pod] = Shard(0)
+            losses = DTensor.from_local(losses.full_tensor(), mesh, pl,
+                                        run_check=False)
+        return HTLState(trees["params"], AdamWState(
+            opt.count, trees["mu"], trees["nu"]), step), losses
 
     # ------------------------------------------------------- mixing (GreedyTL)
     @staticmethod
     def _mix(stacked_params, weights):
         """weights: (L,) simplex -> the mixed tree, in float32, rounded to
-        each leaf's dtype."""
+        each leaf's dtype. A DTensor leaf is mixed as a weighted sum over
+        its leading dim (``einsum`` would flatten its sharded dims, which
+        DTensor cannot view back)."""
+        from torch.distributed.tensor import DTensor
         w = weights.float()
-        return {k: torch.einsum("i,i...->...", w, x.float()).to(x.dtype)
-                for k, x in stacked_params.items()}
 
-    def _mixing_weights(self, stacked_params, mix_batch, self_idx: int):
+        def mix(x):
+            if isinstance(x, DTensor):
+                wb = w.reshape((-1,) + (1,) * (x.dim() - 1))
+                return (wb * x.float()).sum(dim=0).to(x.dtype)
+            return torch.einsum("i,i...->...", w, x.float()).to(x.dtype)
+        return {k: mix(x) for k, x in stacked_params.items()}
+
+    def _mixing_weights(self, stacked_params, mix_batch, self_idx):
         """GreedyTL analogue: simplex weights minimising the local loss."""
         L = self.htl.num_collectors
         if self.htl.mixing_mode == "loss_softmax":
@@ -190,10 +297,18 @@ class HTLTrainer:
     def _token_entropy(tokens, nbins: int = 256):
         """Paper's election index: label entropy -> token-histogram
         entropy (float32)."""
-        counts = torch.bincount((tokens % nbins).reshape(-1).long(),
-                                minlength=nbins).float()
-        p = counts / torch.clamp(counts.sum(), min=1.0)
-        return -torch.sum(torch.where(p > 0, p * torch.log(p), 0.0))
+        return HTLTrainer._token_entropies(tokens[None], nbins)[0]
+
+    @staticmethod
+    def _token_entropies(tokens, nbins: int = 256):
+        """:meth:`_token_entropy` of every DC's tokens (L, ...) -> (L,), in
+        one pass (under a mesh each pod keeps its rows)."""
+        idx = (tokens % nbins).reshape(tokens.shape[0], -1).long()
+        counts = torch.zeros((tokens.shape[0], nbins), dtype=torch.long,
+                             device=idx.device).scatter_add_(
+            1, idx, torch.ones_like(idx)).float()
+        p = counts / torch.clamp(counts.sum(dim=-1, keepdim=True), min=1.0)
+        return -torch.sum(torch.where(p > 0, p * torch.log(p), 0.0), dim=-1)
 
     # ------------------------------------------------------- transfer round
     @torch.no_grad()
@@ -206,7 +321,7 @@ class HTLTrainer:
         if mode == "sync":
             return state
         L = self.htl.num_collectors
-        params = state.params
+        params = {k: _gather_hypotheses(v) for k, v in state.params.items()}
         if mode == "a2a":
             # every DC mixes all hypotheses against its local batch, then
             # the refined hypotheses are averaged (paper Step 4)
@@ -219,13 +334,13 @@ class HTLTrainer:
                     {k: total[k] + refined[k] for k in total}
             new = {k: (total[k] / L).to(params[k].dtype) for k in params}
         else:  # star
-            ent = torch.stack([self._token_entropy(t)
-                               for t in mix_batches["tokens"]])
-            center = int(torch.argmax(ent))
-            w = self._mixing_weights(params, _row(mix_batches, center),
+            ent = _by_collector(self._token_entropies,
+                                mix_batches["tokens"])
+            center = torch.argmax(ent)           # stays on the device
+            w = self._mixing_weights(params, _pick(mix_batches, center),
                                      center)
             new = self._mix(params, w)
-        for k, x in params.items():
+        for k, x in state.params.items():
             x.copy_(new[k].unsqueeze(0).expand_as(x))
         # hypotheses changed discontinuously: second moments stay (scale
         # info), first moments are damped like a warm restart

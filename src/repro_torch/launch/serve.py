@@ -1,12 +1,15 @@
 """Serving launcher of the port (port of ``repro.launch.serve``).
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b --shape decode_32k
+        traces decode_step under the production mesh (as the dry-run does,
+        with weight-stationary decode rules) and prints the record
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --run
         runs a reduced-config batched generation on the card
         (``--device cpu`` runs it on the CPU)
 
-The reference's other path lowers ``decode_step`` ahead of time under a
-512-device mesh; the port has no mesh yet, so without ``--run`` this
-raises, naming ROADMAP Queue 1 item 10.
+Without ``--run`` the process becomes rank 0 of a fake world
+(:func:`repro_torch.launch.dryrun.run_combo`), so run it as its own
+process.
 """
 from __future__ import annotations
 
@@ -22,12 +25,20 @@ def main(argv=None):
                     help="run a reduced local generation instead of lowering")
     ap.add_argument("--mesh", default="pod1", choices=["pod1", "pod2"])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", default=None,
+                    help="where the traced record is written (default "
+                         "results/dryrun_torch)")
     args = ap.parse_args(argv)
 
     if not args.run:
-        raise NotImplementedError(
-            "ahead-of-time lowering under the production mesh is not ported "
-            "yet: ROADMAP Queue 1 item 10 (mesh, dry-run and roofline)")
+        import json
+
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_and_save(args.arch, args.shape, args.mesh,
+                                  args.out or dryrun.RESULTS_DIR,
+                                  weight_stationary_decode=True)
+        print(json.dumps(rec, indent=1))
+        return rec
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config

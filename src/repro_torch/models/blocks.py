@@ -24,9 +24,13 @@ never reaches the Pallas kernel (its ``q_offset`` is static, decode
 positions are per sequence). Cross-attention and MLA attend through
 :func:`chunked_attention` in prefill too, as the reference does (MLA's
 q/k head dim differs from its v head dim, which the flash kernel does not
-take). There is no mesh, so the reference's ``hint`` and
-``context_parallel_attention`` have nothing to do here, and
-:func:`moe_ffn_shard_map` takes the reference's off-mesh branch.
+take). Prefill attention runs inside a roofline region
+(:func:`repro_torch.roofline.trace.region`): a trace counts the work the
+attention needs (:func:`repro_torch.roofline.costs.attention_cost`),
+whichever route runs. The reference's ``hint`` calls stand where they
+stand there (no-ops without a mesh, :func:`repro_torch.sharding.
+partitioning.hint`), and :func:`moe_ffn_shard_map` runs the reference's
+expert-parallel schedule under a mesh.
 
 MoE dispatch keeps exactly the reference's assignments: top-k by a stable
 descending sort (``lax.top_k`` keeps the lower expert on ties, which
@@ -45,7 +49,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 from repro_torch.kernels.flash_attention import flash_attention_bshd
-from repro_torch.sharding.partitioning import ParamSpec
+from repro_torch.roofline.costs import attention_cost
+from repro_torch.roofline.trace import region
+from repro_torch.sharding.partitioning import (
+    DEFAULT_RULES, MULTIPOD_RULES, P, ParamSpec, current_mesh, hint,
+    logical_to_pspec, mesh_axes, to_placements,
+)
 
 NEG_INF = -1e30
 
@@ -118,8 +127,10 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 
     q_offset: absolute position of q[0] relative to k[0] (decode: T_cache);
     an int, a 0-d tensor, or a (B,) tensor of per-sequence positions (then
-    S must fit one chunk, as in the reference).
+    S must fit one chunk, as in the reference). DTensor inputs run as a
+    manual region (:func:`_localize`).
     """
+    q, k, v, back = _localize(q, k, v)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     vd = v.shape[-1]                      # v head dim may differ (MLA)
@@ -130,13 +141,57 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     if S <= chunk or S % chunk != 0:
         q_pos = offset[..., None] + torch.arange(S, device=q.device)
         out = _attend_chunk(qg, k, v, q_pos, k_pos, causal, window)
-        return out.reshape(B, S, H, vd)
+        return back(out.reshape(B, S, H, vd))
     outs = []
     for start in range(0, S, chunk):
         q_pos = offset + start + torch.arange(chunk, device=q.device)
         outs.append(_attend_chunk(qg[:, start:start + chunk], k, v, q_pos,
                                   k_pos, causal, window))
-    return torch.cat(outs, dim=1).reshape(B, S, H, vd)
+    return back(torch.cat(outs, dim=1).reshape(B, S, H, vd))
+
+
+def _localize(q, k, v):
+    """Attention under a mesh as a manual region: each rank attends its own
+    batch rows and heads, with no collective inside. DTensor q/k/v are laid
+    out as ("batch", -, "heads", -), heads sharded only as the KV groups
+    divide (so q's heads and k/v's KV heads stay aligned), and unwrapped;
+    ``back`` wraps the local output in q's layout. Plain tensors come back
+    as they are (``back`` is the identity). DTensor's own propagation of
+    the attention's einsums merges a batch-sharded dim with a head-sharded
+    one into strided shards, whose redistribution it plans by a graph
+    search that a 3-D mesh makes slow."""
+    from torch.distributed.tensor import DTensor
+    mesh = current_mesh()
+    if mesh is None or not isinstance(q, DTensor):
+        return q, k, v, lambda out: out
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    rules = MULTIPOD_RULES if "pod" in mesh_axes(mesh) else DEFAULT_RULES
+    qp = to_placements(logical_to_pspec(
+        ("batch", None, "heads", None), (B, S, KV, hd), mesh, rules), mesh)
+    kp = to_placements(logical_to_pspec(
+        ("batch", None, "kv_heads", None), tuple(k.shape), mesh, rules), mesh)
+
+    def local(t, pl):
+        return _ContiguousGrad.apply(t.redistribute(mesh, pl).to_local())
+
+    def back(out):
+        return DTensor.from_local(out, mesh, qp, run_check=False)
+    return local(q, qp), local(k, kp), local(v, kp), back
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: a gradient leaving
+    a manual region goes back into DTensor ops, whose views of the local
+    shard need a contiguous one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -160,15 +215,27 @@ def gqa_template(cfg: ModelConfig) -> dict:
 
 
 def _proj_heads(x, w):
-    """einsum("bsd,dhk->bshk", x, w) as one matrix product."""
+    """einsum("bsd,dhk->bshk", x, w) as one matrix product. Under a mesh
+    the product's flattened heads dim is laid out as its heads divide
+    (:func:`~repro_torch.sharding.partitioning.hint`'s ``units``): DTensor
+    has no rule to view a dim sharded across head boundaries."""
     D, H, hd = w.shape
-    return (x @ w.reshape(D, H * hd)).unflatten(-1, (H, hd))
+    y = x @ w.reshape(D, H * hd)
+    y = hint(y, ("batch",) + (None,) * (y.dim() - 2) + ("heads",),
+             units=tuple(y.shape[:-1]) + (H,))
+    return y.unflatten(-1, (H, hd))
 
 
 def out_proj(out, wo):
-    """einsum("bshk,hkd->bsd", out, wo) as one matrix product."""
+    """einsum("bshk,hkd->bsd", out, wo) as one matrix product (under a
+    mesh, whole heads on each side of the merge, the gradient's view back
+    included)."""
     H, hd, D = wo.shape
-    return out.flatten(-2) @ wo.reshape(H * hd, D)
+    lead = ("batch",) + (None,) * (out.dim() - 3)
+    out = hint(out, lead + ("heads", None))
+    flat = hint(out.flatten(-2), lead + ("heads",),
+                units=tuple(out.shape[:-2]) + (H,))
+    return flat @ wo.reshape(H * hd, D)
 
 
 def gqa_project_qkv(p, x, cfg: ModelConfig):
@@ -196,8 +263,18 @@ def gqa_attention(p, x, cfg: ModelConfig, *, positions=None, causal=None,
         k = apply_rope(k, positions, cfg.rope_theta)
     causal = cfg.causal if causal is None else causal
     window = cfg.sliding_window if window is None else window
+    if cfg.context_parallel_attention:
+        # shard query positions over the model axis; K/V replicated there
+        q = hint(q, ("batch", "qseq", None, None))
+        k = hint(k, ("batch", None, None, None))
+        v = hint(v, ("batch", None, None, None))
     attend = chunked_attention if plain else flash_attention_bshd
-    out = attend(q, k, v, causal=causal, window=window)
+    ql, kl, vl, back = _localize(q, k, v)
+    with region("attention", lambda: attention_cost(
+            ql, kl, causal=causal, window=window)):
+        out = back(attend(ql, kl, vl, causal=causal, window=window))
+    if cfg.context_parallel_attention:
+        out = hint(out, ("batch", "qseq", None, None))
     return out_proj(out, p["wo"]), (k, v)
 
 
@@ -357,7 +434,12 @@ def mlp_template(d_model: int, d_ff: int) -> dict:
 
 
 def mlp(p, x):
-    h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    """The gated MLP. Under a mesh its hidden activation is laid out as
+    ("batch", ..., "mlp"), the tensor-parallel layout (DTensor's own
+    choice of a sequence-sharded hidden has no rule for the next
+    product's flatten)."""
+    axes = ("batch",) + (None,) * (x.dim() - 2) + ("mlp",)
+    h = F.silu(hint(x @ p["wg"], axes)) * hint(x @ p["wi"], axes)
     return h @ p["wo"]
 
 
@@ -394,26 +476,73 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def expert_counts(flat_e, E: int):
+    """Assignments per expert: ``torch.bincount(flat_e, minlength=E)`` for
+    ids below E, with a static shape (a fake or meta tensor holds no data
+    to size bincount's output by)."""
+    return torch.zeros(E, dtype=torch.long, device=flat_e.device
+                       ).scatter_add(0, flat_e, torch.ones_like(flat_e))
+
+
 def moe_dispatch(probs, K: int, C: int):
     """The reference's routing of T tokens to E experts, K each, at most C
     per expert. Returns (gate (T,K) normalised, flat_e (T*K,) expert of
     each assignment, order (T*K,) the stable sort of assignments by
     expert, keep (T*K,) in sorted order, dest (T*K,) each sorted
     assignment's row of the (E*C + 1)-row dispatch buffer, E*C for a
-    dropped one)."""
+    dropped one, counts (E,) assignments per expert)."""
     T, E = probs.shape
     gate, idx = top_k(probs, K)
     gate = gate / (gate.sum(dim=-1, keepdim=True) + 1e-9)
     flat_e = idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = expert_counts(flat_e, E)
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * K, device=probs.device) - starts[sorted_e]
     keep = pos_in_e < C                                     # capacity drops
     dest = torch.where(keep, sorted_e * C + pos_in_e,
                        torch.full_like(pos_in_e, E * C))    # drop slot
-    return gate, flat_e, order, keep, dest
+    return gate, flat_e, order, keep, dest, counts
+
+
+def _experts_combine(xt, w, gate, order, keep, dest, n_e: int, C: int,
+                     K: int, e_ax=None):
+    """The experts' products over an (n_e*C + 1)-row dispatch buffer (the
+    last row is the drop slot) and the combine: each token's K slots
+    gathered and added in ascending expert order, in the activation dtype,
+    without atomics. ``w`` = (wi, wg, wo) of the n_e experts; ``e_ax``,
+    when given, is the logical axis of the buffer's expert dim."""
+    T, D = xt.shape
+    wi, wg, wo = w
+    buf = xt.new_zeros((n_e * C + 1, D))
+    buf[dest] = xt[order // K]
+    h = buf[:-1].reshape(n_e, C, D)
+    if e_ax:
+        h = hint(h, (e_ax, None, None))
+    hh = F.silu(torch.bmm(h, wg)) * torch.bmm(h, wi)
+    y_e = torch.bmm(hh, wo)
+    if e_ax:
+        y_e = hint(y_e, (e_ax, None, None))
+    y_e = y_e.reshape(n_e * C, D)
+
+    gath = torch.where(keep[:, None], y_e[dest.clamp(max=n_e * C - 1)], 0.0)
+    contrib = gath * gate.reshape(-1)[order][:, None].to(xt.dtype)
+    # each token's K sorted slots, ascending: its experts in id order
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * K, device=xt.device)
+    slots = inv.reshape(T, K).sort(dim=-1).values
+    y = torch.zeros((T, D), dtype=xt.dtype, device=xt.device)
+    for k in range(K):                   # fixed order, activation dtype
+        y = y + contrib[slots[:, k]]
+    return y
+
+
+def _aux_loss(counts, probs, m: MoEConfig, T: int):
+    """Load-balance aux loss (Switch/GShard form): E * sum_e f_e * P_e."""
+    f = counts.float() / (T * m.top_k)
+    return m.router_aux_coef * m.num_experts * torch.sum(
+        f * probs.mean(dim=0))
 
 
 def moe_ffn(p, x, cfg: ModelConfig):
@@ -429,29 +558,13 @@ def moe_ffn(p, x, cfg: ModelConfig):
 
     logits = (xt @ p["router"]).float()                     # (T,E)
     probs = torch.softmax(logits, dim=-1)
-    gate, flat_e, order, keep, dest = moe_dispatch(probs, K, C)
-    src_tok = order // K
-
-    buf = xt.new_zeros((E * C + 1, D))
-    buf[dest] = xt[src_tok]
-    h = buf[:-1].reshape(E, C, D)
-    hh = F.silu(torch.bmm(h, p["wg"])) * torch.bmm(h, p["wi"])
-    y_e = torch.bmm(hh, p["wo"]).reshape(E * C, D)
-
-    gath = torch.where(keep[:, None], y_e[dest.clamp(max=E * C - 1)], 0.0)
-    w = gate.reshape(-1)[order][:, None].to(xt.dtype)
-    contrib = gath * w                                      # sorted order
-    # each token's K sorted slots, ascending: its experts in id order
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * K, device=x.device)
-    slots = inv.reshape(T, K).sort(dim=-1).values
-    y = torch.zeros((T, D), dtype=xt.dtype, device=x.device)
-    for k in range(K):                   # fixed order, activation dtype
-        y = y + contrib[slots[:, k]]
-
-    # load-balance aux loss (Switch/GShard form): E * sum_e f_e * P_e
-    f = torch.bincount(flat_e, minlength=E).float() / (T * K)
-    aux = m.router_aux_coef * E * torch.sum(f * probs.mean(dim=0))
+    gate, _, order, keep, dest, counts = moe_dispatch(probs, K, C)
+    # expert-parallel layout: the dispatch buffer's sharding agrees with
+    # the expert weights' (workload-dependent)
+    e_ax = "experts_both" if cfg.expert_parallel == "both" else "experts"
+    y = _experts_combine(xt, (p["wi"], p["wg"], p["wo"]), gate, order, keep,
+                         dest, E, C, K, e_ax)
+    aux = _aux_loss(counts, probs, m, T)
 
     y = y.reshape(B, S, D)
     if m.num_shared_experts:
@@ -459,8 +572,70 @@ def moe_ffn(p, x, cfg: ModelConfig):
     return y, aux
 
 
+def _manual(t, mesh, spec):
+    """The local tensor a manual region computes on: a DTensor
+    redistributed to ``spec`` and unwrapped, or a plain tensor (the same
+    full tensor on every rank) cut to this rank's part of ``spec``."""
+    from torch.distributed.tensor import DTensor
+    placements = to_placements(spec, mesh)
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, placements).to_local()
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            n = mesh.size(i)
+            size = t.shape[pl.dim] // n
+            t = t.narrow(pl.dim, mesh.get_local_rank(i) * size, size)
+    return t
+
+
 def moe_ffn_shard_map(p, x, cfg: ModelConfig):
-    """The reference's expert-parallel MoE FFN takes its off-mesh branch
-    here, :func:`moe_ffn`: the port has no mesh (its expert-parallel
-    schedule waits for ROADMAP Queue 1 item 10)."""
-    return moe_ffn(p, x, cfg)
+    """MoE FFN with the reference's hand-written expert-parallel schedule.
+
+    A manual region over the 'model' axis of the ambient mesh: every rank
+    owns E/n of the experts, the tokens are replicated, so dispatch is a
+    purely local scatter (each rank keeps the assignments routed to its
+    experts, with the full routing's capacity slots), and the only
+    collective is one activation-sized all-reduce of the combined output
+    over the model group. The aux loss comes from the full counts.
+    Without a mesh, or when the expert count does not divide the axis, it
+    is :func:`moe_ffn`, as in the reference. The region's tensors are
+    local (DTensor inputs are unwrapped, plain ones cut to the rank's
+    experts); the output is a replicated DTensor when ``x`` is a DTensor.
+    """
+    mesh = current_mesh()
+    m = cfg.moe
+    E = m.num_experts
+    if mesh is None or E % mesh_axes(mesh).get("model", E + 1) != 0:
+        return moe_ffn(p, x, cfg)
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate
+    n_sh = mesh_axes(mesh)["model"]
+    E_loc = E // n_sh
+    B, S, D = x.shape
+    T = B * S
+    K = m.top_k
+    C = _capacity(T, m)
+    sh = mesh.get_local_rank("model")
+
+    w = tuple(_manual(p[k], mesh, P("model")) for k in ("wi", "wg", "wo"))
+    xt = _manual(x, mesh, P()).reshape(T, D)
+    router = _manual(p["router"], mesh, P())
+    probs = torch.softmax((xt @ router).float(), dim=-1)
+    gate, flat_e, order, keep, dest, counts = moe_dispatch(probs, K, C)
+    mine = (flat_e[order] // E_loc) == sh
+    keep = keep & mine
+    dest = torch.where(keep, dest - sh * E_loc * C,
+                       torch.full_like(dest, E_loc * C))
+    y = _experts_combine(xt, w, gate, order, keep, dest, E_loc, C, K)
+    y = funcol.wait_tensor(funcol.all_reduce(
+        y, "sum", mesh.get_group("model")))     # the only collective
+    aux = _aux_loss(counts, probs, m, T)
+
+    y = y.reshape(B, S, D)
+    if isinstance(x, DTensor):
+        rep = [Replicate()] * mesh.ndim
+        y = DTensor.from_local(y, mesh, rep, run_check=False)
+        aux = DTensor.from_local(aux, mesh, rep, run_check=False)
+    if m.num_shared_experts:
+        y = y + mlp(p["shared"], x)
+    return y, aux

@@ -65,7 +65,7 @@ from repro_torch.models.blocks import (
     moe_template, out_proj, rmsnorm,
 )
 from repro_torch.sharding.partitioning import (
-    ParamModule, ParamSpec, flatten, iter_init, torch_dtype,
+    ParamModule, ParamSpec, flatten, hint, iter_init, torch_dtype,
 )
 
 
@@ -129,16 +129,19 @@ MTP_LOSS_COEF = 0.1
 
 def _ffn(p, x, cfg: ModelConfig):
     """The block's MLP or MoE FFN: (y, MoE aux loss, 0.0 for an MLP).
-    The reference's ``expert_parallel="shard_map"`` selects
+    ``expert_parallel="shard_map"`` selects the expert-parallel
     ``moe_ffn_shard_map``, which is :func:`moe_ffn` without a mesh."""
     if "moe" not in p:
         return mlp(p["mlp"], x), 0.0
+    if cfg.expert_parallel == "shard_map":
+        return blocks.moe_ffn_shard_map(p["moe"], x, cfg)
     return moe_ffn(p["moe"], x, cfg)
 
 
 def _attn_block(p, h, cfg: ModelConfig, plain=False):
     """One attention block over the full sequence. Returns (h, MoE aux
     loss, cache entries): (ckv,) for MLA, (k, v) for GQA."""
+    h = hint(h, ("batch", None, None))
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         a, ckv = mla_attention(p["attn"], x, cfg)
@@ -154,6 +157,7 @@ def _attn_block(p, h, cfg: ModelConfig, plain=False):
 def _attn_block_decode(p, h, cfg: ModelConfig, cache_slice, pos, *,
                        window_cache=False):
     """One layer of one decode step; writes the layer's cache in place."""
+    h = hint(h, ("batch", None, None))
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         h = h + _mla_decode_buffered(p["attn"], x, cache_slice["ckv"], pos,
@@ -170,6 +174,7 @@ def _encdec_block(p, h, enc_out, cfg: ModelConfig, plain=False):
     """One decoder block of the audio family over the full sequence:
     causal self-attention, cross-attention to the encoder output, MLP.
     Returns (h, (k, v, xk, xv))."""
+    h = hint(h, ("batch", None, None))
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     a, (k, v) = gqa_attention(p["attn"], x, cfg, plain=plain)
     h = h + a
@@ -198,12 +203,24 @@ def _encdec_block_decode(p, h, cfg: ModelConfig, st, pos):
 def _write_at(c, new, pos):
     """Write a one-token entry into a (B,S,...) buffer at ``pos``, in
     place — 0-d (shared position) or (B,) per-sequence (continuous
-    batching). Index tensors stay on the device: no host sync."""
+    batching). Index tensors stay on the device: no host sync. A DTensor
+    buffer (the dry-run's) is written by a masked select, which DTensor
+    runs shard by shard: its index writes either have no sharding rule
+    or, in place, change the placements but not the shard."""
     if pos.dim() == 0:
+        if _is_dtensor(c):
+            hit = torch.arange(c.shape[1], device=c.device) == pos
+            hit = hit.reshape((1, -1) + (1,) * (c.dim() - 2))
+            return c.copy_(torch.where(hit, new, c))
         return c.index_copy_(1, pos.reshape(1), new)
     B = c.shape[0]
     c[torch.arange(B, device=c.device), pos] = new[:, 0]
     return c
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
 
 
 def _positions(pos, batch):
@@ -255,6 +272,7 @@ def _hybrid_sub(p, h, cfg: ModelConfig, kind: str, plain=False):
     """One hybrid sublayer (mixer + MLP) over the full sequence. Returns
     (h, state): (h_last, conv_tail) for RG-LRU, the last ``window`` keys
     and values for local attention."""
+    h = hint(h, ("batch", None, None))
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     if kind == "rglru":
         y, st = rglru.rglru_forward(p["mix"], x, cfg, plain=plain)
@@ -461,12 +479,20 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------- embedding
     def _embed(self, tokens):
-        h = self.top["embed"][tokens.long()].to(self.dtype)
+        if self.cfg.embedding_impl == "one_hot":
+            # a matmul in place of the gather (the reference's option for
+            # its stacked-hypothesis trainer under a mesh)
+            oh = torch.nn.functional.one_hot(
+                tokens.long(), self.cfg.vocab_size).to(self.dtype)
+            h = oh @ self.top["embed"].to(self.dtype)
+        else:
+            h = self.top["embed"][tokens.long()].to(self.dtype)
         if self.cfg.family == "hybrid":           # gemma-style scaling
             # sqrt(d_model) rounded to the model dtype, as the reference
             h = h * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype,
                                  device=h.device)
-        return h
+        # keep activations batch-sharded (not FSDP-sharded on d_model)
+        return hint(h, ("batch", None, None))
 
     def _head(self, h):
         if self.cfg.tie_embeddings:
@@ -489,6 +515,7 @@ class Model(nn.Module):
             return [(self.layers, dec, _ENCDEC_CACHE)]
         if cfg.family == "ssm":
             def ssm(p, h):
+                h = hint(h, ("batch", None, None))
                 x = rmsnorm(h, p["ln1"], cfg.norm_eps)
                 y, st = ssd.ssd_forward(p["mixer"], x, cfg, plain=plain)
                 return h + y, 0.0, st
@@ -543,6 +570,7 @@ class Model(nn.Module):
         h = h + pe[None].to(self.dtype)
 
         def layer(p, h):
+            h = hint(h, ("batch", None, None))
             x = rmsnorm(h, p["ln1"], cfg.norm_eps)
             a, _ = gqa_attention(p["attn"], x, cfg, causal=False,
                                  rope=False, plain=plain)
@@ -610,20 +638,23 @@ class Model(nn.Module):
 
     # --------------------------------------------------------------- serving
     @torch.no_grad()
-    def prefill(self, batch):
+    def prefill(self, batch, *, plain=False):
         """batch: {"tokens": (B, S) integer tensor on the model's device},
         plus ``frontend_embeds`` (B, F, D) for the vlm family (prepended
         to the token embeddings) or ``encoder_embeds`` (B, T, D) for the
-        audio family. Returns (last_token_logits (B, V), cache)."""
+        audio family. Returns (last_token_logits (B, V), cache). ``plain``
+        takes every mixer's plain route (the dry-run's trace, whose fake
+        tensors no kernel can take)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         h = self._embed(tokens)
         enc_out = None
         if cfg.family == "audio":
-            enc_out = self._encode(batch["encoder_embeds"])
+            enc_out = self._encode(batch["encoder_embeds"], plain=plain)
         elif cfg.family == "vlm":
             h = torch.cat([batch["frontend_embeds"].to(self.dtype), h], dim=1)
-        h, _, caches = self._trunk(h, collect_cache=True, enc_out=enc_out)
+        h, _, caches = self._trunk(h, collect_cache=True, enc_out=enc_out,
+                                   plain=plain)
         logits = self._head(self._norm(h[:, -1:]))[:, 0]
         return logits, self._pack_cache(caches, tokens.shape[0], h.shape[1])
 
@@ -752,8 +783,10 @@ def _run(body, p, h, remat: bool):
 
 
 def _ce(logits, targets):
-    """Mean token cross-entropy, in float32."""
-    logits = logits.float()
+    """Mean token cross-entropy, in float32. Under a mesh the logits are
+    gathered over the vocabulary first (DTensor's vocab-parallel gather
+    fails to reduce its masked partial sums at rank 3)."""
+    logits = hint(logits, ("batch", None, None)).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets.long()[..., None])[..., 0]
     return (logz - gold).mean()

@@ -13,7 +13,9 @@ hand-written kernel, on the CPU its plain version
 :func:`rglru_scan_ref` (the reference's log-depth scan). The training
 loss passes ``plain=True`` and runs :func:`rglru_scan_ref` on any device,
 since the kernel has no backward: the one place where the device does
-not pick the kernel (ROADMAP Queue 1 item 9d). Decode is the O(1) step
+not pick the kernel (ROADMAP Queue 1 item 9d). The scan runs in a
+roofline region (cost :func:`repro_torch.roofline.costs.rglru_scan_cost`)
+on either route. Decode is the O(1) step
 in torch ops and writes the state and conv caches in place.
 """
 from __future__ import annotations
@@ -24,6 +26,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.models.ssd import _causal_conv  # the same depthwise conv
+from repro_torch.roofline.costs import rglru_scan_cost
+from repro_torch.roofline.trace import region
 from repro_torch.sharding.partitioning import ParamSpec
 
 C_FACTOR = 8.0
@@ -78,7 +82,8 @@ def rglru_forward(p, x, cfg: ModelConfig, *, plain=False):
     u = _causal_conv(u_pre, p["conv_w"], p["conv_b"])
     a, gated_in = _gates(u, p)
     scan = rglru_scan_ref if plain else rglru_scan
-    h = scan(a, gated_in)                               # (B,S,W) f32
+    with region("rglru_scan", lambda: rglru_scan_cost(a)):
+        h = scan(a, gated_in)                           # (B,S,W) f32
     h = h.to(x.dtype)
     out = (h * y_branch) @ p["w_out"]
     # the reference recomputes x @ w_x here; the pre-conv u is the same

@@ -7,7 +7,9 @@ hand-written kernel, on the CPU its plain version :func:`ssd_chunked`
 (the reference's XLA path). There is no ``attention_impl`` switch; the
 training loss passes ``plain=True`` and runs :func:`ssd_chunked` on any
 device, since the kernel has no backward: the one place where the device
-does not pick the kernel (ROADMAP Queue 1 item 9d).
+does not pick the kernel (ROADMAP Queue 1 item 9d). The scan runs in a
+roofline region (:func:`repro_torch.roofline.trace.region`, cost
+:func:`repro_torch.roofline.costs.ssd_scan_cost`) on either route.
 Decode is the O(1) recurrent step in torch ops, as in the reference,
 whose decode never reaches the Pallas kernel; it writes the state and
 conv caches it is given in place.
@@ -21,7 +23,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
-from repro_torch.sharding.partitioning import ParamSpec
+from repro_torch.roofline.costs import ssd_scan_cost
+from repro_torch.roofline.trace import region
+from repro_torch.sharding.partitioning import ParamSpec, current_mesh, hint
 
 
 def ssd_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -53,7 +57,17 @@ def ssd_template(cfg: ModelConfig) -> dict:
 def _causal_conv(u, w, b):
     """Depthwise causal conv. u: (B,S,C), w: (cw,C): a grouped
     ``conv1d`` (weight (C,1,cw)) over ``cw - 1`` zeros of left padding.
-    The result is contiguous (B,S,C): the scan kernels read C in place."""
+    The result is contiguous (B,S,C): the scan kernels read C in place.
+    Under a mesh it is a manual region: each rank convolves its own batch
+    rows over every channel (DTensor's convolution keeps the global group
+    count on a channel-sharded shard, and takes no batch split over two
+    mesh axes)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(u, DTensor) and current_mesh() is not None:
+        u = hint(u, ("batch", None, None))
+        out = _causal_conv(u.to_local(), w.full_tensor(), b.full_tensor())
+        return DTensor.from_local(out, u.device_mesh, u.placements,
+                                  run_check=False)
     cw, C = w.shape
     out = F.conv1d(F.pad(u.transpose(1, 2), (cw - 1, 0)),
                    w.t().unsqueeze(1), groups=C)
@@ -89,10 +103,11 @@ def ssd_forward(p, x, cfg: ModelConfig, *, plain=False):
     dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
 
-    if plain:
-        y, h_final = ssd_chunked(xs, dt, A, Bm, Cm, s.chunk_size)
-    else:
-        y, h_final = ssd_scan(xs, dt, A, Bm, Cm, chunk=s.chunk_size)
+    with region("ssd_scan", lambda: ssd_scan_cost(xs, Bm, s.chunk_size)):
+        if plain:
+            y, h_final = ssd_chunked(xs, dt, A, Bm, Cm, s.chunk_size)
+        else:
+            y, h_final = ssd_scan(xs, dt, A, Bm, Cm, chunk=s.chunk_size)
     y = y + xs * p["D_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(B, S, d_in)
     y = _gated_rmsnorm(y, z, p["gate_norm"], cfg.norm_eps)

@@ -886,3 +886,104 @@ def test_htl_trainer_on_the_card_matches_the_cpu(cuda, mode):
     for k, v in sc.opt.nu.items():
         assert float((sg.opt.nu[k] - v).abs().max()) <= \
             1e-4 * float(v.abs().max()) + 1e-30, k
+
+
+# ---------------------------------------------------------------------------
+# The mesh, the dry-run and the roofline on the card's torch
+# ---------------------------------------------------------------------------
+
+def test_hint_under_the_host_mesh_leaves_served_logits_bit_for_bit(cuda):
+    """Under the 1x1 host mesh of the card the hints change nothing: the
+    served prefill and decode logits are bit for bit those without a
+    mesh, with plain tensors and with the parameters and tokens laid out
+    as (replicated) DTensors on that mesh (attention runs on the local
+    tensors: the flash kernel launches)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding.partitioning import use_compute_mesh
+
+    cfg = get_config("llama3.2-3b").reduced()
+    model = build_model(cfg).init(seed=0)
+    batch = lm_batch(cfg, 2, 64, seed=0)
+    want, cache = model.prefill(batch)
+    mesh = make_host_mesh()
+    try:
+        with use_compute_mesh(mesh):
+            got, _ = model.prefill(batch)
+            assert torch.equal(got, want)
+            rep = [Replicate(), Replicate()]
+            for mod in model.modules():
+                for name, p in list(mod.named_parameters(recurse=False)):
+                    setattr(mod, name, torch.nn.Parameter(
+                        DTensor.from_local(p.detach(), mesh, rep),
+                        requires_grad=False))
+            before = fa.launches
+            with implicit_replication():      # positions, masks
+                got_dt, _ = model.prefill({"tokens": DTensor.from_local(
+                    batch["tokens"], mesh, rep)})
+            assert fa.launches == before + cfg.num_layers
+        assert torch.equal(got_dt.full_tensor(), want)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch,num_layers", [("llama3.2-3b", None),
+                                             ("mamba2-1.3b", None),
+                                             ("recurrentgemma-9b", 5)])
+def test_kernel_and_plain_routes_trace_the_same_flops(cuda, arch,
+                                                      num_layers):
+    """A card model's prefill launches the kernels, which no dispatch mode
+    sees; the mixer regions count their work, so the traced FLOPs equal
+    the plain route's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.roofline.trace import analyze_trace
+
+    cfg = get_config(arch).reduced()
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    model = build_model(cfg).init(seed=0)
+    batch = lm_batch(cfg, 2, 64, seed=0)
+    kernel = analyze_trace(model.prefill, batch)
+    plain = analyze_trace(model.prefill, batch, plain=True)
+    assert kernel["flops"] == plain["flops"] > 0
+    assert kernel["regions"] == plain["regions"] and kernel["regions"]
+
+
+def test_fake_world_and_dtensor_on_the_cards_torch():
+    """The fake backend (torch's internal testing store) and DTensor under
+    it, on the card machine's torch: a 256-rank mesh, a sharded matmul and
+    a redistribution seen by the trace, in a fresh process."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    code = "\n".join([
+        "import torch",
+        "from torch.distributed.tensor import Shard, Replicate",
+        "from repro_torch.launch.mesh import fake_world, "
+        "make_production_mesh",
+        "from repro_torch.roofline.trace import analyze_trace",
+        "from repro_torch.sharding.partitioning import P, distribute",
+        "fake_world(256)",
+        "mesh = make_production_mesh()",
+        "x = distribute(torch.empty(64, 512, device='meta'), mesh, "
+        "P('data'))",
+        "w = distribute(torch.empty(512, 256, device='meta'), mesh, "
+        "P('data', 'model'))",
+        "a = analyze_trace(lambda: (x @ w).redistribute(mesh, "
+        "[Shard(0), Replicate()]))",
+        "assert a['flops'] > 0 and a['collectives']['n_ops'] > 0, a",
+        "print('OK', a['flops'], a['collectives']['by_op'])"])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          env=dict(os.environ, PYTHONPATH=os.path.join(
+                              root, "src")), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "OK" in proc.stdout

@@ -120,9 +120,29 @@ def test_token_entropy_and_election_match_reference():
 
 
 def test_local_phase_podwise_waits_for_the_mesh():
-    tr = HTLTrainer(MODEL, OptimizerConfig(), HTLConfig())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tr.local_phase_podwise(None, None, None)
+    """The pod-wise local phase runs on a mesh (it waited for ROADMAP
+    Queue 1 item 10): on a one-pod world it is the local phase, bit for
+    bit, with the losses (L, H) as the reference's out_specs give them;
+    the reference's own podwise phase is held to its local phase the same
+    way."""
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    tr = _trainer("a2a")
+    stream = TokenStream(CFG.vocab_size, seed=5)
+    batches = _batches(stream, 2)
+    want_state, want = tr.local_phase(tr.init(0), batches)
+    fake_world(1)
+    try:
+        mesh = make_production_mesh(multi_pod=True, shape=(1, 1, 1))
+        got_state, got = tr.local_phase_podwise(tr.init(0), batches, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert got.shape == (L, 2) and torch.equal(got, want.t())
+    for k in want_state.params:
+        assert torch.equal(got_state.params[k], want_state.params[k]), k
+        assert torch.equal(got_state.opt.mu[k], want_state.opt.mu[k]), k
+        assert torch.equal(got_state.opt.nu[k], want_state.opt.nu[k]), k
+    assert int(got_state.opt.count) == int(want_state.opt.count) == 2
+    assert int(got_state.step) == 2
 
 
 # --------------------------------------- tests/test_htl_trainer.py on port

@@ -3,11 +3,13 @@
 (checked in a fresh interpreter), and the port's entry points default to
 CUDA and refuse to fall back to the CPU quietly."""
 import dataclasses
+import json
 import math
 import os
 import pkgutil
 import subprocess
 import sys
+import tempfile
 import types
 
 import numpy as np
@@ -56,7 +58,12 @@ def test_port_modules_import_without_jax_or_repro():
             "repro_torch.service.client", "repro_torch.optim",
             "repro_torch.optim.adamw", "repro_torch.optim.schedule",
             "repro_torch.launch.train",
-            "repro_torch.core.htl_trainer"} <= set(names)
+            "repro_torch.core.htl_trainer", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs", "repro_torch.launch.validate",
+            "repro_torch.launch.dryrun", "repro_torch.launch.htl_dryrun",
+            "repro_torch.roofline", "repro_torch.roofline.costs",
+            "repro_torch.roofline.trace", "repro_torch.roofline.analysis",
+            "repro_torch.roofline.report"} <= set(names)
     code = "\n".join(
         ["import importlib, sys"]
         + [f"importlib.import_module({n!r})" for n in names]
@@ -189,15 +196,33 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
         out = serve.main(["--arch", arch, "--run", "--device", "cpu"])
         assert tuple(out.shape) == (2, 8)
     assert ContinuousBatcher(cpu_model, slots=2).slots == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        serve.main(["--arch", "llama3.2-3b"])
+    # without --run: decode_step traced on the production mesh (a fake
+    # world of 256 ranks, its own process)
+    with tempfile.TemporaryDirectory() as out:
+        code = ("import json; from repro_torch.launch import serve; "
+                f"rec = serve.main(['--arch', 'llama3.2-3b', '--out', {out!r}]);"
+                " print('RECORD', json.dumps(rec))")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                              env=dict(os.environ, PYTHONPATH=SRC,
+                                       OMP_NUM_THREADS="1"),
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("RECORD ")][-1]
+        rec = json.loads(line[len("RECORD "):])
+        assert (rec["status"], rec["shape"], rec["num_devices"]) == (
+            "ok", "decode_32k", 256), rec.get("traceback")
+        assert rec["flops"] > 0 and rec["weight_stationary_decode"]
+        assert os.path.exists(os.path.join(
+            out, "llama3.2-3b_decode_32k_pod1.json"))
 
 
 def test_unported_families_raise_naming_their_roadmap_item():
     """Every architecture of the reference is registered, builds and
-    trains (a finite loss and gradients on the CPU); what is left
-    unported needs a mesh, and its entry points name ROADMAP Queue 1
-    item 10: the HTL trainer's pod-wise local phase."""
+    trains (a finite loss and gradients on the CPU); the HTL trainer's
+    pod-wise local phase, which used to wait for the mesh of ROADMAP Queue
+    1 item 10, runs on a mesh and equals the local phase on a one-pod
+    world."""
     import repro_torch.configs as configs
     from repro_torch.configs import ALL_ARCHS, get_config
     from repro_torch.configs.base import HTLConfig, OptimizerConfig
@@ -222,9 +247,27 @@ def test_unported_families_raise_naming_their_roadmap_item():
         total.backward()
         assert bool(torch.isfinite(total)), arch
         assert model.top["embed"].grad is not None, arch
-    trainer = HTLTrainer(model, OptimizerConfig(), HTLConfig())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        trainer.local_phase_podwise(None, None, None)
+    # the pod-wise local phase runs on a mesh: on a one-pod world it is
+    # the local phase, its losses (L, H)
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    trainer = HTLTrainer(model, OptimizerConfig(),
+                         HTLConfig(num_collectors=2))
+    model.requires_grad_(False)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 2, 1, 17)).astype(np.int32))
+    batches = {"tokens": toks[..., :-1], "targets": toks[..., 1:]}
+    want_state, want = trainer.local_phase(trainer.init(0), batches)
+    fake_world(1)
+    try:
+        mesh = make_production_mesh(multi_pod=True, shape=(1, 1, 1))
+        got_state, got = trainer.local_phase_podwise(trainer.init(0),
+                                                     batches, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert torch.equal(got, want.t())
+    assert all(torch.equal(got_state.params[k], want_state.params[k])
+               for k in want_state.params)
+    assert int(got_state.step) == int(want_state.step) == 2
 
 
 def test_training_modules_import_with_jax_blocked():
@@ -242,6 +285,11 @@ def test_training_modules_import_with_jax_blocked():
         "from repro_torch.optim import adamw_update, cosine_warmup_schedule",
         "from repro_torch.launch.train import make_train_step, train_loop",
         "from repro_torch.core.htl_trainer import HTLTrainer, HTLState",
+        "import repro_torch.sharding.partitioning, repro_torch.launch.mesh",
+        "import repro_torch.launch.specs, repro_torch.launch.validate",
+        "import repro_torch.launch.dryrun, repro_torch.launch.htl_dryrun",
+        "import repro_torch.roofline.costs, repro_torch.roofline.trace",
+        "import repro_torch.roofline.analysis, repro_torch.roofline.report",
         "try:",
         "    import jax",
         "except ImportError:",
