@@ -93,7 +93,8 @@ failure raises and the script exits non-zero without printing a result:
    per-pair ``Topology`` patterns give them, a quadratic in the fleet size,
    with the center's role read from the run's center ids); then a 40-DC,
    3-window city on the card and on the CPU with the same injected draw
-   indices: centers equal, F1 within 1e-4;
+   indices: centers equal, F1 within 1e-4 (one shard throughout: no
+   process group);
 8f. orchestration — the sweep backends, the service and the Pareto
    search on the card, each held byte-equal to the sequential runs:
    ``devices:n=2`` and ``processes:n=4`` (four CUDA contexts time-sliced
@@ -111,10 +112,31 @@ failure raises and the script exits non-zero without printing a result:
    frontier labels, each ``frontier_result`` byte-equal to a plain run of
    ``frontier_spec``, a candidate pruned before the last rung, walls,
    window-evaluation ``cost`` and ``loo_trials`` launches per search;
-8e. loo_shapes — every (L, R, D, M) that phases 7-8d and the in-process
-   runs of 8f (devices, service, Pareto) gave the ``loo_trials`` wrappers
-   (a graph's at its capture) is a row of phases 3 and 3b (printed after
-   8f; the worker processes of 8f run the sequential run's shapes);
+8g. city_shards — the city's DC axis split over worlds of 2 and then 4
+   ranks (``run_city``'s sharded path: ``dc_shards`` over ``fleet_mesh``),
+   each rank a fresh interpreter started by ``multiprocessing``'s spawn
+   (never forked: the parent holds a CUDA context), all on ``cuda:0``
+   under ``gloo`` with a file store in a temporary directory (NCCL refuses
+   two ranks on one device; four CUDA contexts time-slice the card, as 8f's
+   ``processes:n=4`` do); a sharded window runs eagerly. Each world runs
+   the 40-DC city with ``CITY_SMALL``'s injected draw indices (centers
+   equal to 8d's one-shard card run, F1 within 1e-4) and then the ``city``
+   preset at its defaults at 2 windows with every rank a shard (the
+   default ``max_shards``, the world size) and the default hash draw:
+   centers and every ledger event equal to 8d's 2-window run, F1 within
+   1e-4 (the card-vs-CPU bar), whether F1 is bitwise equal and, if not,
+   the first window whose confusion counts differ (cuBLAS may pick another
+   ``bmm`` kernel for another batch of DCs); per world the wall (each
+   rank's, from a barrier), each rank's peak device memory, collectives
+   per window (``all_reduce``) beside the one final broadcast, graph
+   replays (none) and each rank's ``loo_trials_step`` launches (each
+   rank runs the center's refine, replicated: > 0 on every rank). A rank
+   that fails fails the world at once; no rank outlives the phase;
+8e. loo_shapes — every (L, R, D, M) that phases 7-8d, the in-process
+   runs of 8f (devices, service, Pareto) and 8g's ranks gave the
+   ``loo_trials`` wrappers (a graph's at its capture) is a row of phases 3
+   and 3b (printed after 8g; the worker processes of 8f run the
+   sequential run's shapes);
 9.-16. serve — llama3.2-3b, mamba2-1.3b, recurrentgemma-9b, olmoe-1b-7b,
    minicpm3-4b, deepseek-v3-671b, llava-next-mistral-7b and whisper-medium,
    one at a time, each at full width in bfloat16 (weights from the port's
@@ -182,8 +204,9 @@ Then the whole script's seconds, the ``{"kernels": [...]}`` line (the
 four ported kernels, and the fused step as a fifth line of the
 ``loo_trials`` source; ``launches`` is phase 8's count for
 ``loo_trials`` and the serve phases' for the others; the ``loo_trials``
-lines add ``launches_by_path`` for phases 8, 8c, 8d and each Pareto
-search of 8f, the flash line one entry per served arch)
+lines add ``launches_by_path`` for phases 8, 8c, 8d, each Pareto
+search of 8f and each world of 8g (its ranks' launches summed), the flash
+line one entry per served arch)
 and, last, the ``{"ok": true, ...}`` line. Imports neither JAX nor the JAX
 package ``repro``.
 """
@@ -224,6 +247,13 @@ CITY_MEMORY_RATIO = 1.15
 CITY_F1_FLOOR = 0.15
 CITY_SMALL = dict(windows=3, eval_every=1, algo="star", engine="scan",
                   tech="wifi", fleet_size=40, obs_per_dc=4, train_iters=5)
+# Phase 8g: the city's DC axis over worlds of 2 and 4 ``gloo`` ranks, all
+# on one card (NCCL refuses two ranks on one device), each rank a spawned
+# interpreter; the city preset at phase 8d's first window count, and the
+# seconds a world may take (the ranks' collectives time out then too).
+CITY_SHARD_WORLDS = (2, 4)
+CITY_SHARD_WINDOWS = CITY_WINDOWS[0]
+CITY_SHARD_TIMEOUT_S = 300
 # The one scenario of the paper grid that phase 8c profiles on both engines
 # (an A2A label: a refine at every DC), at a few windows to keep the
 # profiler's bookkeeping short.
@@ -1926,16 +1956,23 @@ def city_ledger_mismatches(events, cfg, centers):
     return bad
 
 
-def small_city_card_vs_cpu(data, seed=0):
-    """The 40-DC city on the card and on the CPU with the same injected
-    draw indices: (max |F1 card - F1 CPU|, centers equal, curves)."""
+def small_city_indices(data, seed=0):
+    """The 40-DC city's config and its injected draw indices (W, L, K)."""
     from repro_torch.core import cityscan
     from repro_torch.core.scenario import ScenarioConfig
 
     cfg = ScenarioConfig(**CITY_SMALL)
     L = cityscan.city_fleet_pad(cfg.fleet_size)
-    idx = torch.from_numpy(np.random.default_rng(seed).integers(
+    return cfg, torch.from_numpy(np.random.default_rng(seed).integers(
         0, len(data.y_train), size=(cfg.windows, L, cfg.obs_per_dc)))
+
+
+def small_city_card_vs_cpu(data, seed=0):
+    """The 40-DC city on the card and on the CPU with the same injected
+    draw indices: (max |F1 card - F1 CPU|, centers equal, curves)."""
+    from repro_torch.core import cityscan
+
+    cfg, idx = small_city_indices(data, seed)
     out = {}
     for dev in ("cuda", "cpu"):
         cms, centers, _ = cityscan._city_outputs(
@@ -1989,8 +2026,9 @@ def phase_city(loo, data):
                "ledger_total": Ledger(list(rec.events)).total(),
                "ledger_windows_off_count": city_ledger_mismatches(
                    rec.events, rec.cfg, centers)}
-        rows[W] = row
         emit({"phase": "city", **row})
+        # phase 8g's reference: this run's confusion counts and events
+        rows[W] = dict(row, cms=dispatch.last[0], events=list(rec.events))
         curve = rec.f1_curve
         check(row["city_scan_dispatches"] == 1, f"city W={W}: {counts}")
         check(len(curve) == W and all(0.0 < v <= 1.0 for v in curve),
@@ -2017,7 +2055,188 @@ def phase_city(loo, data):
     check(rss <= CITY_MEMORY_RATIO, f"city: host RSS grew {rss}x")
     check(same_centers, "small city: card and CPU centers differ")
     check(err <= SCAN_F1_ATOL, f"small city: card vs CPU F1 {err}")
+    rows["small"] = small["cuda"]
     return rows
+
+
+def city_shard_rank(rank, world, store, out_path, windows=None):
+    """One rank of phase 8g (module doc), in a spawned interpreter: joins
+    the ``gloo`` world of ``world`` ranks on ``cuda:0`` through the file
+    ``store``, runs the 40-DC city with injected draws and then, with
+    ``windows``, the ``city`` preset, both with every rank a shard, and
+    writes what it saw to ``out_path`` (JSON)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import cityscan
+    from repro_torch.core.experiment import get_preset
+    from repro_torch.data.synthetic_covtype import make_covtype_like
+    from repro_torch.kernels import loo_trials as loo
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=CITY_SHARD_TIMEOUT_S))
+    try:
+        data = make_covtype_like(seed=0)
+        out = {"rank": rank}
+        with ShapeLog(loo) as shapes, \
+                Timed(cityscan, "_city_outputs") as outputs:
+            cfg, idx = small_city_indices(data)
+            cms, centers, _ = cityscan._city_outputs(
+                cfg, data, max_shards=world,
+                draw=cityscan.table_draw(idx.to("cuda")), device="cuda")
+            out["small"] = {"f1_curve": cityscan._f1_curve(
+                cms, cfg.eval_every), "centers": centers.tolist()}
+            if windows is not None:
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                loo.reset_launches()
+                cityscan.reset_graph_stats()
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = get_preset("city", windows=windows).run(
+                    data, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                stats = cityscan.graph_stats()
+                rec = res.records[0]
+                cms, centers, _ = outputs.last
+                out["city"] = {
+                    "wall_s": wall,
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                    "loo_trials_launches": loo.launches,
+                    "loo_trials_step_launches": loo.step_launches,
+                    "collectives": stats["collectives"],
+                    "graphs_captured": stats["captures"],
+                    "replays": stats["replays"], "f1_curve": rec.f1_curve,
+                    "centers": centers.tolist(), "events": list(rec.events),
+                    "cms": cms.tolist()}
+        out["shapes"] = sorted(shapes.shapes)
+        with open(out_path, "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_city_world(world, windows=None):
+    """Every rank's :func:`city_shard_rank` results for a world of
+    ``world`` spawned (never forked) interpreters; fails as soon as one
+    rank fails, or after :data:`CITY_SHARD_TIMEOUT_S`, and leaves no rank
+    running."""
+    import multiprocessing
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        procs = [ctx.Process(target=city_shard_rank, args=(
+            r, world, os.path.join(tmp, "store"), paths[r], windows))
+            for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + CITY_SHARD_TIMEOUT_S
+        try:
+            while (any(p.is_alive() for p in procs)
+                   and time.monotonic() < deadline
+                   and not any(p.exitcode for p in procs)):
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"city_shards world {world}: rank exit "
+                                    f"codes {codes}")
+        results = []
+        for path in paths:
+            with open(path) as fh:
+                results.append(json.load(fh))
+        return results
+
+
+def first_city_difference(got, want):
+    """The first quantity in which a sharded city run differs from phase
+    8d's: the window whose confusion counts differ, else None."""
+    for t, (a, b) in enumerate(zip(got["cms"], want["cms"].tolist())):
+        if a != b:
+            return f"confusion counts of window {t}"
+    return None
+
+
+def phase_city_shards(city_runs):
+    """Phase 8g (module doc): the city over worlds of 2 and 4 ranks on one
+    card against phase 8d's one-shard runs; the ``loo_trials`` launches
+    and the shapes each rank gave the wrappers."""
+    one = city_runs[CITY_SHARD_WINDOWS]
+    small_f1, small_centers = city_runs["small"]
+    rows, shapes = {}, set()
+    for world in CITY_SHARD_WORLDS:
+        t0 = time.perf_counter()
+        ranks = run_city_world(world, CITY_SHARD_WINDOWS)
+        for r in ranks:
+            shapes.update(tuple(s) for s in r["shapes"])
+        runs = [r["city"] for r in ranks]
+        f1_err = max(abs(a - b) for run in runs
+                     for a, b in zip(run["f1_curve"], one["f1_curve"]))
+        small_err = max(abs(a - b) for r in ranks
+                        for a, b in zip(r["small"]["f1_curve"], small_f1))
+        W = CITY_SHARD_WINDOWS
+        row = {"world": world, "shards": world, "windows": W,
+               "fleet_size": one["fleet_size"], "backend": "gloo",
+               "device": "cuda:0 (every rank)",
+               "world_s": time.perf_counter() - t0,
+               "wall_s": max(run["wall_s"] for run in runs),
+               "rank_wall_s": [run["wall_s"] for run in runs],
+               "one_shard_wall_s": one["wall_s"],
+               "peak_device_bytes": [run["peak_device_bytes"]
+                                     for run in runs],
+               "one_shard_peak_device_bytes": one["peak_device_bytes"],
+               "collectives_per_window": [(run["collectives"] - 1) / W
+                                          for run in runs],
+               "broadcasts": 1,
+               "graphs_captured": [run["graphs_captured"] for run in runs],
+               "replays": [run["replays"] for run in runs],
+               "loo_trials_launches": [run["loo_trials_launches"]
+                                       for run in runs],
+               "loo_trials_step_launches": [run["loo_trials_step_launches"]
+                                            for run in runs],
+               "centers": runs[0]["centers"],
+               "centers_equal": all(run["centers"] == one["centers"]
+                                    for run in runs),
+               "ledger_equal": all(run["events"] == one["events"]
+                                   for run in runs),
+               "f1_max_abs_diff": f1_err,
+               "f1_bitwise_equal": all(run["f1_curve"] == one["f1_curve"]
+                                       for run in runs),
+               "first_difference": next(
+                   (d for d in (first_city_difference(run, one)
+                                for run in runs) if d), None),
+               "small_city_centers_equal": all(
+                   r["small"]["centers"] == small_centers.tolist()
+                   for r in ranks),
+               "small_city_f1_max_abs_diff": small_err,
+               "small_city_f1_bitwise_equal": all(
+                   r["small"]["f1_curve"] == small_f1 for r in ranks)}
+        rows[world] = row
+        emit({"phase": "city_shards", **row})
+        name = f"city_shards world {world}"
+        check(row["centers_equal"], f"{name}: centers differ from 8d's")
+        check(row["ledger_equal"], f"{name}: ledger differs from 8d's")
+        check(f1_err <= SCAN_F1_ATOL, f"{name}: F1 {f1_err} from 8d's")
+        check(row["small_city_centers_equal"],
+              f"{name}: small city centers differ from one shard's")
+        check(small_err <= SCAN_F1_ATOL,
+              f"{name}: small city F1 {small_err} from one shard's")
+        check(all(n > 0 for n in row["loo_trials_step_launches"]),
+              f"{name}: a rank never launched loo_trials_step")
+        check(row["replays"] == [0] * world,
+              f"{name}: a sharded window replayed a graph")
+    return rows, shapes
 
 
 def phase_backends(paper_overrides, paper_run, data):
@@ -2296,8 +2515,12 @@ def main() -> int:
         orch = phase_orchestration(loo, smoke_overrides, smoke_run, data,
                                    paper_overrides, main_run,
                                    make_covtype_like(seed=0))
-    # every loo_trials shape of phases 7-8d and 8f was held against its
-    # plain version in phases 3 and 3b
+
+        # 8g. the city's DC axis over worlds of ranks on the card
+        shard_runs, shard_shapes = phase_city_shards(city_runs)
+    # every loo_trials shape of phases 7-8d, 8f and 8g's ranks was held
+    # against its plain version in phases 3 and 3b
+    shape_log.shapes |= shard_shapes
     unchecked = sorted(shape_log.shapes - set(KERNEL_SHAPES))
     emit({"phase": "loo_shapes", "main_path_shapes":
           sorted(shape_log.shapes), "unchecked": unchecked})
@@ -2354,7 +2577,10 @@ def main() -> int:
                 f"city {city['windows']} windows (graph replays)":
                     city[key],
                 **{f"pareto {name} (fleet)": row[key]
-                   for name, row in orch["pareto"].items()}}
+                   for name, row in orch["pareto"].items()},
+                **{f"city_shards {world} ranks, {row['windows']} windows "
+                   f"(eager, all ranks)": sum(row[key])
+                   for world, row in shard_runs.items()}}
 
     head["shape"] = list(HEADLINE_SHAPE)
     step_head = step_rows[KERNEL_SHAPES.index(HEADLINE_SHAPE)]

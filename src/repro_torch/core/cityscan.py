@@ -24,12 +24,32 @@ its products sum over other shapes than the fleet engine's buckets).
 
 **City engine** (``engine="scan"`` + ``fleet_size``, :func:`run_city`).
 The smart-city scenario: a StarHTL fleet of ``fleet_size`` DCs, each
-drawing ``obs_per_dc`` observations per window on the device, with the DC
-axis batched on one device. Cross-DC combination is exact: one-hot
-reductions for the source pool and the center dataset, first-max argmax
-for the entropy election. Energy is charged analytically — O(1) ledger
-events per window. Sharding the DC axis over several GPUs (the reference's
-``shard_map``) is not ported: ``max_shards`` > 1 raises.
+drawing ``obs_per_dc`` observations per window on the device. Cross-DC
+combination is exact: one-hot reductions for the source pool and the
+center dataset, first-max argmax for the entropy election. Energy is
+charged analytically — O(1) ledger events per window.
+
+**The sharded city.** Inside a ``torch.distributed`` process group, every
+rank calls :func:`run_city` with the same arguments (SPMD, one process per
+rank), and the DC axis is split over the first :func:`repro_torch.sharding.
+partitioning.dc_shards` ranks (the reference's ``shard_map`` over
+``fleet_mesh``): rank r holds DCs ``r * L/shards ...`` and their rows of
+the death schedule. Every cross-shard combination is one ``all_reduce``
+(SUM) over the mesh's group, two per window: the election — rank r writes
+its best (entropy, DC id) into row r of a zeroed float64 buffer, and the
+reference's lexicographic max (entropy descending, id ascending) is taken
+over the summed rows on the device — together with the alive count and
+the source pool with its mask; then the center's dataset. Each sum adds
+exact zeros to one value (DESIGN.md §10), so the result is bitwise the
+one-shard result wherever the per-DC products are. Every rank then runs
+the center's refine and the eval on the same tensors, replicated, as the
+reference's ``shard_map`` does. Ranks beyond the mesh compute nothing;
+rank 0 broadcasts the confusion counts and center ids over the world, so
+every rank returns the same result. A sharded window body runs eagerly,
+on the card too: the collectives of a ``gloo`` group (the one backend that
+puts several ranks on one card) stage through the host and cannot be
+captured. Without a process group, or in a fake world, the city runs one
+shard whatever ``max_shards`` says, as the reference does on one device.
 
 **How a window runs.** The reference compiles the scenario into one jitted
 ``lax.scan``. Here the window body is a function of static tensors — the
@@ -37,7 +57,8 @@ packed plan (or the city's train stream and death schedule), the carry, a
 device window index the body advances itself, and the per-window outputs —
 and the tensors' device decides how it runs, as it does for the kernels:
 
-* on the card the body is captured once into a ``torch.cuda.CUDAGraph``
+* on the card the body of a one-shard program is captured once into a
+  ``torch.cuda.CUDAGraph``
   (after one warm-up run on a side stream, which sets up the cuBLAS and
   cuSOLVER handles and workspaces, as PyTorch's graph documentation asks)
   and each window is one replay of that graph; the graph launches the
@@ -45,7 +66,8 @@ and the tensors' device decides how it runs, as it does for the kernels:
   the end of the scenario. Graphs are cached per block shape, as the
   reference's ``lru_cache``d programs are (LRU-bounded here: a graph holds
   its plan buffers and its memory pool);
-* on the CPU the same body runs eagerly, window by window.
+* on the CPU, and on the card for a sharded city, the same body runs
+  eagerly, window by window.
 
 **Programs are not reentrant.** A reference program is a pure jitted
 function; a program here owns mutable static tensors (plan, carry, window
@@ -60,8 +82,9 @@ another thread's allocations do not break a capture.
 Nothing in the body syncs the host: no ``.item()``, no Python branch on a
 tensor value, no boolean-mask indexing; windows are selected by
 ``index_select`` on the device index. The kernel wrappers' Python launch
-counters see a graph's launches once, at capture: :func:`graph_stats`
-counts replays and the launches they make (captured per window × replays).
+counters see a graph's launches once, at capture, and every eager launch:
+:func:`graph_stats` counts replays and the launches they make (captured
+per window × replays), and the collectives a sharded city issues.
 
 **The city draw.** The reference draws each DC's observations with
 ``jax.random.fold_in``/``randint`` (threefry), which torch cannot cheaply
@@ -70,8 +93,8 @@ train-stream indices on the device — and the default,
 :func:`hash_draw`, is a counter-based integer hash of (seed, window, DC
 id, sample): a different stream from the reference's, with the same
 property that a DC's draw does not depend on how the DC axis is laid out.
-:func:`table_draw` replays fixed indices (the tests inject the
-reference's).
+:func:`table_draw` replays fixed indices, each DC its own row (the tests
+inject the reference's).
 """
 from __future__ import annotations
 
@@ -98,12 +121,8 @@ from repro_torch.core.topology import (Node, Topology, fleet_nodes,
                                        get_transport)
 from repro_torch.data.synthetic_covtype import Dataset, NUM_CLASSES
 from repro_torch.kernels import loo_trials as kernel
-
-CITY_SHARDS_NOT_PORTED = (
-    "run_city(max_shards={}): sharding the city's DC axis over several GPUs "
-    "(the reference's all_gather/psum election and pool, dc_shards/"
-    "fleet_mesh) is not ported yet: ROADMAP.md Queue 1 item 11 (multi-GPU "
-    "city sharding)")
+from repro_torch.sharding.partitioning import (FLEET_AXIS, dc_shards,
+                                               fleet_mesh, fleet_world)
 
 # Captured programs kept at once (each holds its graph, its memory pool and
 # its static buffers; the paper grid at 30 windows needs about ten).
@@ -159,7 +178,8 @@ def _window_cm(w, x_test, y_oh, num_classes: int):
 # ---------------------------------------------------------------------------
 
 _STATS = {"captures": 0, "capture_s": 0.0, "replays": 0,
-          "loo_trials_launches": 0, "loo_trials_step_launches": 0}
+          "loo_trials_launches": 0, "loo_trials_step_launches": 0,
+          "collectives": 0}
 _STATS_LOCK = threading.Lock()
 # One capture at a time in the process: ``torch.cuda.graph`` synchronises
 # the device on entry, which CUDA refuses while another thread captures.
@@ -173,7 +193,10 @@ def graph_stats() -> dict:
     ``loo_trials_step_launches`` the fused one), since the last reset.
     The launches a replay makes are read from the kernel wrappers'
     counters around the capture, so an eager launch of the kernel from
-    another thread during a capture would be counted in."""
+    another thread during a capture would be counted in. Eager windows
+    (the CPU, a sharded city) add no replays: the wrappers' own counters
+    see their launches. ``collectives`` counts the sharded city's
+    ``all_reduce`` and ``broadcast`` calls."""
     with _STATS_LOCK:
         return dict(_STATS)
 
@@ -181,7 +204,8 @@ def graph_stats() -> dict:
 def reset_graph_stats() -> None:
     with _STATS_LOCK:
         _STATS.update(captures=0, capture_s=0.0, replays=0,
-                      loo_trials_launches=0, loo_trials_step_launches=0)
+                      loo_trials_launches=0, loo_trials_step_launches=0,
+                      collectives=0)
 
 
 def _add_stats(**inc) -> None:
@@ -193,13 +217,15 @@ def _add_stats(**inc) -> None:
 class _Program:
     """A window body over the static tensors ``state``, on their device.
     :meth:`run` steps it: on the card as replays of a graph captured at
-    the first run, on the CPU by calling the body. Not reentrant: a caller
-    holds :attr:`lock` from writing ``state`` to reading it back."""
+    the first run, on the CPU (or with ``capture`` off) by calling the
+    body. Not reentrant: a caller holds :attr:`lock` from writing
+    ``state`` to reading it back."""
 
     def __init__(self, state: Dict[str, torch.Tensor],
                  body: Callable[[Dict[str, torch.Tensor]], None],
-                 device: torch.device):
+                 device: torch.device, capture: bool = True):
         self.state, self.body, self.device = state, body, device
+        self.capture = capture and device.type == "cuda"
         self.lock = threading.Lock()
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         # kernel launches one replay makes, recorded at capture
@@ -209,7 +235,7 @@ class _Program:
             reset: Callable[[Dict[str, torch.Tensor]], None]) -> None:
         """``reset`` the state, then step the body ``windows`` times."""
         reset(self.state)
-        if self.device.type != "cuda":
+        if not self.capture:
             for _ in range(windows):
                 self.body(self.state)
             return
@@ -536,7 +562,8 @@ def run_scenario_scan(cfg, data: Dataset, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# city engine: StarHTL over a device-resident fleet, DC axis on one device
+# city engine: StarHTL over a device-resident fleet, the DC axis on one
+# device or split over the ranks of a process group
 # ---------------------------------------------------------------------------
 
 def city_fleet_pad(fleet_size: int) -> int:
@@ -545,15 +572,35 @@ def city_fleet_pad(fleet_size: int) -> int:
     return fleet_cap(fleet_size)
 
 
+def _sum_over_shards(parts, group, dtype):
+    """``parts`` summed over the ranks of ``group`` by ONE ``all_reduce``
+    (SUM): packed into a flat ``dtype`` buffer on their device, reduced,
+    and unpacked to each part's shape and dtype."""
+    import torch.distributed as dist
+    buf = torch.cat([p.reshape(-1).to(dtype) for p in parts])
+    dist.all_reduce(buf, group=group)
+    _add_stats(collectives=1)
+    out, i = [], 0
+    for p in parts:
+        out.append(buf[i:i + p.numel()].view(p.shape).to(p.dtype))
+        i += p.numel()
+    return out
+
+
 def _city_round(w, has_g, x, y, m, alive, gid, l0, eta, x_test, y_oh, *,
-                num_classes: int, iters: int):
-    """One city StarHTL round. ``x``/``y``/``m`` are this window's per-DC
-    datasets (L, K, ·), ``gid`` the DC ids, ``alive`` the churn-aware
-    membership mask (valid AND battery not yet depleted). All cross-DC
-    combination is an exact one-hot reduction (source pool, center
-    dataset) or a first-max argmax (entropy election, lowest DC id on a
-    tie). Returns ``(w2, cm, cg, do)`` where ``cg`` (1,) is the center's
-    id and ``do`` flags whether a learning round ran (>= 2 DCs alive; a
+                num_classes: int, iters: int, shards: int = 1,
+                shard: int = 0, group=None):
+    """One city StarHTL round; identical math sharded or not. ``x``/``y``/
+    ``m`` are this window's per-DC datasets (Lloc, K, ·) of this shard's
+    DCs, ``gid`` their global ids, ``alive`` the churn-aware membership
+    mask (valid AND battery not yet depleted). All cross-DC combination is
+    an exact one-hot reduction (source pool, center dataset) or a
+    lexicographic max (entropy election, lowest DC id on a tie); with
+    ``shards`` > 1 the reductions are finished by two sums over ``group``
+    (rank ``shard``'s part written into its own row or slot, zeros
+    elsewhere), so the sums are exact. Returns
+    ``(w2, cm, cg, do)`` where ``cg`` (1,) is the center's id and ``do``
+    flags whether a learning round ran (>= 2 DCs alive; a
     churned-to-nothing fleet keeps ``w`` untouched)."""
     f32 = torch.float32
     K = x.shape[1]
@@ -572,7 +619,8 @@ def _city_round(w, has_g, x, y, m, alive, gid, l0, eta, x_test, y_oh, *,
         ent = ent + terms[:, c]
     ent = -ent / float(np.log(np.float32(num_classes)))   # float32 log
     ent = torch.where(alive, ent, -1.0)
-    cg = gid.index_select(0, torch.argmax(ent).reshape(1))       # (1,)
+    li = torch.argmax(ent).reshape(1)
+    cg = gid.index_select(0, li)                                 # (1,)
     n_alive = torch.sum(alive.to(f32))
 
     # source pool: base models of the first min(L0, M_CAP) *alive* DCs'
@@ -584,10 +632,30 @@ def _city_round(w, has_g, x, y, m, alive, gid, l0, eta, x_test, y_oh, *,
     src = torch.einsum("lm,lfc->mfc", oh, base)
     src_mask = torch.sum(oh, dim=0)
 
+    if shards > 1:
+        # the reference's all_gather of every shard's (entropy, id) as a
+        # sum of one-hot rows, exact in float64, beside the alive count
+        # and the pool; then its lexicographic max over the rows
+        f64 = torch.float64
+        rows = torch.zeros((shards, 2), dtype=f64, device=x.device)
+        rows[shard] = torch.cat([ent.index_select(0, li).to(f64),
+                                 cg.to(f64)])
+        rows, n_alive, src, src_mask = _sum_over_shards(
+            [rows, n_alive, src, src_mask], group, f64)
+        ce, cgf = rows[0, 0], rows[0, 1]
+        for i in range(1, shards):
+            better = (rows[i, 0] > ce) | ((rows[i, 0] == ce)
+                                          & (rows[i, 1] < cgf))
+            ce = torch.where(better, rows[i, 0], ce)
+            cgf = torch.where(better, rows[i, 1], cgf)
+        cg = cgf.to(gid.dtype).reshape(1)
+
     # center's local dataset, same exact one-hot reduction
     coh = (gid == cg).to(f32)
     cx = torch.einsum("l,lkf->kf", coh, x)
     cy = torch.einsum("l,lk->k", coh, y.to(f32))
+    if shards > 1:
+        cx, cy = _sum_over_shards([cx, cy], group, f32)
 
     refined = _greedytl(cx[None], cy.to(torch.int32)[None],
                         torch.ones((1, K), dtype=f32, device=x.device),
@@ -629,10 +697,12 @@ def hash_draw(seed, n_train: int, obs_per_dc: int):
 
 
 def table_draw(indices):
-    """A draw that replays fixed train-stream indices ``(W, L, K)`` (a
-    tensor on the run's device): window ``t`` reads row ``t``."""
+    """A draw that replays fixed train-stream indices ``(W, L, K)`` of the
+    whole fleet (a tensor on the run's device): window ``t`` reads row
+    ``t``, and each DC its own row ``gid`` of it, so a shard reads its
+    DCs' indices."""
     def draw(t, gid):
-        return indices.index_select(0, t)[0]
+        return indices.index_select(0, t)[0].index_select(0, gid)
     return draw
 
 
@@ -652,18 +722,20 @@ def _draw_window(xtr, ytr, draw, t, gid, validf, obs_per_dc: int):
     return x, y, m
 
 
-def _city_body(s, *, draw, num_classes: int, iters: int,
-               obs_per_dc: int) -> None:
-    """One city window over the static tensors ``s``: collection,
-    training, election, refine, EMA and streamed eval on the device; the
-    window's center id goes to ``s["centers"]``."""
+def _city_body(s, *, draw, num_classes: int, iters: int, obs_per_dc: int,
+               shards: int = 1, shard: int = 0, group=None) -> None:
+    """One city window over the static tensors ``s`` (this shard's DCs
+    ``gid`` and their death windows ``t_die``): collection, training,
+    election, refine, EMA and streamed eval on the device; the window's
+    center id goes to ``s["centers"]``."""
     t, gid = s["t"], s["gid"]
     alive = (gid < s["l0"]) & (t < s["t_die"])
     x, y, m = _draw_window(s["xtr"], s["ytr"], draw, t, gid,
                            alive.to(torch.float32), obs_per_dc)
     w2, cm, cg, do = _city_round(
         s["w"], s["has_g"], x, y, m, alive, gid, s["l0"], s["eta"],
-        s["x_test"], s["y_oh"], num_classes=num_classes, iters=iters)
+        s["x_test"], s["y_oh"], num_classes=num_classes, iters=iters,
+        shards=shards, shard=shard, group=group)
     s["has_g"].logical_or_(do)
     s["w"].copy_(w2)
     s["cms"].index_copy_(0, t, cm[None])
@@ -673,11 +745,16 @@ def _city_body(s, *, draw, num_classes: int, iters: int,
 
 def _city_program(W: int, L: int, K: int, num_classes: int, iters: int,
                   train_shape, n_test: int, device: torch.device,
-                  draw=None) -> _Program:
+                  draw=None, shards: int = 1, shard: int = 0,
+                  group=None) -> _Program:
     """The city program: one window per step, per-window buffers in the
-    graph's pool, so peak memory does not grow with W. Cached per shape
-    with the default draw (:func:`hash_draw` on the static ``seed``); an
-    injected draw gets a program of its own."""
+    graph's pool, so peak memory does not grow with W. With ``shards`` > 1
+    it holds rank ``shard``'s L/shards DCs, sums over ``group`` and runs
+    eagerly (module doc). Cached per shape and shard with the default draw
+    (:func:`hash_draw` on the static ``seed``); an injected draw gets a
+    program of its own."""
+    Lloc = L // shards
+
     def make():
         n_train, F = train_shape
         i64, f32 = torch.int64, torch.float32
@@ -687,8 +764,9 @@ def _city_program(W: int, L: int, K: int, num_classes: int, iters: int,
             x_test=torch.empty((n_test, F), dtype=f32, device=device),
             y_oh=torch.empty((n_test, num_classes), dtype=f32,
                              device=device),
-            gid=torch.arange(L, dtype=i64, device=device),
-            t_die=torch.empty((L,), dtype=i64, device=device),
+            gid=torch.arange(shard * Lloc, (shard + 1) * Lloc, dtype=i64,
+                             device=device),
+            t_die=torch.empty((Lloc,), dtype=i64, device=device),
             l0=torch.zeros((), dtype=i64, device=device),
             seed=torch.zeros((), dtype=i64, device=device),
             eta=torch.zeros((), dtype=f32, device=device),
@@ -702,13 +780,13 @@ def _city_program(W: int, L: int, K: int, num_classes: int, iters: int,
 
         def body(state):
             _city_body(state, draw=d, num_classes=num_classes, iters=iters,
-                       obs_per_dc=K)
-        return _Program(s, body, device)
+                       obs_per_dc=K, shards=shards, shard=shard, group=group)
+        return _Program(s, body, device, capture=shards == 1)
 
     if draw is not None:
         return make()
     key = ("city", W, L, K, num_classes, iters, tuple(train_shape), n_test,
-           str(device))
+           str(device), shards, shard, group)
     return _cached_program(key, make)
 
 
@@ -796,20 +874,56 @@ def _city_death_schedule(cfg, L0: int, L: int) -> np.ndarray:
     return t_die
 
 
-def _city_outputs(cfg, data: Dataset, *, draw=None, device="cuda"):
+def _broadcast_outputs(cms, centers, windows: int, device):
+    """Rank 0's confusion counts (W, C, C) and center ids (W,) on every
+    rank of the world, by ONE broadcast of a float64 buffer on ``device``
+    (counts below 2^24 and ids below 2^53 are exact in it); a rank that
+    computed nothing passes ``None``."""
+    import torch.distributed as dist
+    n = windows * NUM_CLASSES * NUM_CLASSES
+    buf = torch.zeros((n + windows,), dtype=torch.float64, device=device)
+    if cms is not None:
+        buf.copy_(torch.from_numpy(np.concatenate(
+            [cms.reshape(-1), centers]).astype(np.float64)))
+    dist.broadcast(buf, src=0)
+    _add_stats(collectives=1)
+    out = buf.cpu().numpy()
+    return (out[:n].reshape(windows, NUM_CLASSES, NUM_CLASSES)
+            .astype(np.float32), out[n:].astype(np.int64))
+
+
+def _city_outputs(cfg, data: Dataset, *, max_shards: Optional[int] = None,
+                  draw=None, device="cuda"):
     """The city scenario's device outputs: per-window confusion counts
-    (W, C, C), center ids (W,), and the death schedule they ran under."""
+    (W, C, C), center ids (W,), and the death schedule they ran under. In
+    a process group the first ``dc_shards`` ranks compute them, each on
+    its DCs, and every rank returns rank 0's (module doc)."""
     dev = resolve_device(device)
     L0, K, W = cfg.fleet_size, cfg.obs_per_dc, cfg.windows
     L = city_fleet_pad(L0)
-    xtr, ytr = _train_arrays(data, dev)
-    x_test, y_oh = _eval_arrays(data, dev)
     t_die = _city_death_schedule(cfg, L0, L)
-    program = _city_program(W, L, K, NUM_CLASSES, cfg.train_iters,
-                            tuple(xtr.shape), x_test.shape[0], dev, draw)
-    cms, centers = _dispatch_city(program, dict(
-        xtr=xtr, ytr=ytr, x_test=x_test, y_oh=y_oh, t_die=t_die, l0=L0,
-        seed=int(cfg.seed), eta=cfg.global_update_rate), W)
+    world, rank = fleet_world()
+    shards = dc_shards(L, max_shards)
+    group = None
+    if shards > 1:
+        mesh = fleet_mesh(shards, dev.type)     # collective: every rank
+        if rank < shards:
+            group = mesh.get_group(FLEET_AXIS)
+    cms = centers = None
+    if rank < shards:
+        xtr, ytr = _train_arrays(data, dev)
+        x_test, y_oh = _eval_arrays(data, dev)
+        Lloc = L // shards
+        program = _city_program(W, L, K, NUM_CLASSES, cfg.train_iters,
+                                tuple(xtr.shape), x_test.shape[0], dev, draw,
+                                shards, rank, group)
+        # the shard's rows of the death schedule: its DCs' global ids
+        gid = np.arange(rank * Lloc, (rank + 1) * Lloc)
+        cms, centers = _dispatch_city(program, dict(
+            xtr=xtr, ytr=ytr, x_test=x_test, y_oh=y_oh, t_die=t_die[gid],
+            l0=L0, seed=int(cfg.seed), eta=cfg.global_update_rate), W)
+    if world > 1:
+        cms, centers = _broadcast_outputs(cms, centers, W, dev)
     return cms, centers, t_die
 
 
@@ -817,14 +931,16 @@ def run_city(cfg, data: Dataset, *, max_shards: Optional[int] = None,
              draw=None, device="cuda"):
     """The city scenario: ``cfg.fleet_size`` DCs, ``cfg.obs_per_dc``
     observations each per window, StarHTL, one program for the whole run
-    on ``device``. ``max_shards`` None or 1 keeps the DC axis on one
-    device (larger raises :class:`NotImplementedError`); ``draw`` replaces
-    the default :func:`hash_draw` (see the module doc)."""
+    on ``device``. In a process group every rank calls it with the same
+    arguments and gets the same result: ``max_shards`` caps the DC-mesh
+    width (default: every rank, down to a count that divides the padded
+    fleet); without a group, or in a fake world, the DC axis stays on one
+    device. ``draw`` replaces the default :func:`hash_draw` (see the
+    module doc)."""
     from repro_torch.core.scenario import ScenarioResult
 
-    if max_shards is not None and max_shards > 1:
-        raise NotImplementedError(CITY_SHARDS_NOT_PORTED.format(max_shards))
-    cms, centers, t_die = _city_outputs(cfg, data, draw=draw, device=device)
+    cms, centers, t_die = _city_outputs(cfg, data, max_shards=max_shards,
+                                        draw=draw, device=device)
     L0, K = cfg.fleet_size, cfg.obs_per_dc
     ledger = Ledger()
     for t in range(cfg.windows):

@@ -552,9 +552,10 @@ def _city(fleet_size: int = 100_000, windows: int = 3, obs_per_dc: int = 4,
           tech: str = "wifi") -> SweepSpec:
     """The million-DC scaling scenario (ROADMAP north-star): a smart-city
     StarHTL fleet of ``fleet_size`` Data Collectors on the scan engine —
-    device-resident fleet state, the DC axis batched on one device, one
-    program for the whole run, each window one CUDA-graph replay on the
-    card (repro_torch.core.cityscan.run_city). Defaults are sized for the
+    device-resident fleet state, one program for the whole run, the DC
+    axis batched on one device (each window one CUDA-graph replay on the
+    card) or, when every rank of a process group runs the spec, split over
+    the ranks (repro_torch.core.cityscan.run_city). Defaults are sized for the
     reference's CI ``city-smoke`` gate: 10^5 DCs, 3 windows, trimmed
     base-SVM iterations."""
     base = ScenarioConfig(windows=windows, eval_every=1, algo="star",

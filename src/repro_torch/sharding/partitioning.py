@@ -20,8 +20,9 @@ when present). A logical axis is replicated when the dim does not divide
 by the mesh axes' size. :func:`logical_to_pspec` takes any mesh object
 whose ``.shape`` maps axis name to size (a ``DeviceMesh`` too, through
 :func:`mesh_axes`), so the validator and the specs need no process
-group. ``fleet_mesh`` and ``dc_shards`` (the sharded city, ROADMAP Queue
-1 item 11) are not ported.
+group. The city's DC axis (:func:`fleet_mesh`, :func:`dc_shards`) is
+split over the ranks of the default process group, one rank standing for
+each of the reference's devices.
 
 Initialisers are the reference's: ``normal``, ``scaled_normal`` and
 ``embed`` draw N(0, 0.02^2) in float32 and cast, ``ones`` and ``zeros``
@@ -202,11 +203,68 @@ DEFAULT_RULES = {
 
 MULTIPOD_RULES = dict(DEFAULT_RULES, batch=("pod", "data"), dc="pod")
 
-# The million-DC city's rules (its stacked DC dim is a mesh axis); the
-# sharded city itself is ROADMAP Queue 1 item 11.
+# The million-DC city (repro_torch.core.cityscan): the stacked DC dim is a
+# real mesh axis, each rank holding its slice of the fleet.
 FLEET_RULES = dict(DEFAULT_RULES, dc="dc")
 
 FLEET_AXIS = "dc"
+
+_FLEET_MESHES: Dict[tuple, Any] = {}
+
+
+def fleet_world() -> Tuple[int, int]:
+    """(world size, rank) of the default process group as the city counts
+    devices: (1, 0) without a group, and on the ``"fake"`` backend
+    (:func:`repro_torch.launch.mesh.fake_world`), whose ranks are not
+    devices."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_backend() == "fake":
+        return 1, 0
+    return dist.get_world_size(), dist.get_rank()
+
+
+def fleet_mesh(n_shards: Optional[int] = None, device_type: str = None):
+    """1-D ``DeviceMesh`` named ``"dc"`` over ranks ``0..n_shards-1`` of
+    the default process group, on ``device_type`` (default: the entry
+    points' device). ``None`` takes every rank. Building a mesh is
+    collective, so every rank of the world calls this with the same
+    arguments; a rank outside the mesh gets it too, with no coordinate on
+    it. Cached per (shards, device type, world group). Without a process
+    group a one-rank ``gloo`` group on an in-process store is started, as
+    :func:`repro_torch.launch.mesh.make_host_mesh` does."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    world, _ = fleet_world()
+    n = world if n_shards is None else int(n_shards)
+    if not 1 <= n <= world:
+        fake = dist.is_initialized() and dist.get_backend() == "fake"
+        raise ValueError(f"fleet_mesh wants 1..{world} shards, got {n}"
+                         + (" (the ranks of a fake world are not devices)"
+                            if fake else ""))
+    device_type = device_type or torch.device(DEFAULT_DEVICE).type
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    key = (n, device_type, dist.group.WORLD)
+    mesh = _FLEET_MESHES.get(key)
+    if mesh is None:
+        mesh = _FLEET_MESHES[key] = DeviceMesh(
+            device_type, torch.arange(n), mesh_dim_names=(FLEET_AXIS,))
+    return mesh
+
+
+def dc_shards(n_padded: int, max_shards: Optional[int] = None) -> int:
+    """Largest usable shard count for a padded DC axis: the biggest rank
+    count of the world (capped by ``max_shards``) that divides
+    ``n_padded``, so no shard is ragged. Padded fleet capacities are
+    multiples of 32 beyond 16 DCs (:func:`repro_torch.core.fleet.
+    fleet_cap`), so any power-of-two count <= 32 divides them."""
+    world, _ = fleet_world()
+    n = world if max_shards is None else min(int(max_shards), world)
+    n = max(1, n)
+    while n > 1 and n_padded % n != 0:
+        n -= 1
+    return n
 
 
 class PartitionSpec(tuple):

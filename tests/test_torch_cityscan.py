@@ -303,9 +303,16 @@ def test_city_learning_charge_is_the_pairwise_topology_sum(center_is_ap):
 
 
 def test_max_shards_beyond_one_raises():
+    """``max_shards`` > 1 used to raise (the sharded city was ROADMAP
+    Queue 1 item 11); without a process group the city now runs one shard,
+    as the reference's does on one device, and equals ``max_shards=1``.
+    The sharded runs are tests/test_torch_city_shards.py."""
     cfg = t_scn.ScenarioConfig(**CITY)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_city.run_city(cfg, DATA, max_shards=2, device="cpu")
+    want = t_city.run_city(cfg, DATA, max_shards=1, device="cpu")
+    for n in (2, 8):
+        got = t_city.run_city(cfg, DATA, max_shards=n, device="cpu")
+        assert got.f1_curve == want.f1_curve
+        assert got.ledger.events == want.ledger.events
 
 
 def test_city_mode_config_validation():

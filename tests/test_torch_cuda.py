@@ -26,8 +26,10 @@ relative; the scan engine's graph replays bitwise equal to its body run
 eagerly on the card, the scan engine against the fleet engine and a small
 city on the card against the CPU (ledgers exactly, F1 within 1e-4, the
 reference's fleet-vs-loop bar), same-shape scan and city scenarios run
-from four threads at once against each run alone (the same bars), and the
-city's peak device memory within 1.15x from 2 to 6 windows; the sweep
+from four threads at once against each run alone (the same bars), the
+city's peak device memory within 1.15x from 2 to 6 windows, and the small
+city over a 2-rank ``gloo`` world on the card against one shard (centers
+equal, F1 within 1e-4); the sweep
 backends (devices, processes, inline hosts) on the card byte-equal to
 the sequential card run; the MoE dispatch on the card selecting what it
 selects on the CPU (bfloat16 ties included), the MoE FFN bitwise
@@ -683,6 +685,23 @@ def test_small_city_on_the_card_matches_the_cpu(cuda):
         make_covtype_like(seed=0), seed=5)
     assert same_centers
     assert err <= SCAN_F1_ATOL
+
+
+def test_sharded_city_on_the_card_matches_one_shard(cuda):
+    """The 40-DC city with injected draws over a 2-rank ``gloo`` world,
+    both ranks on ``cuda:0`` (chip_smoke phase 8g's ranks, spawned): every
+    rank's centers equal the one-shard card run's, its F1 within the
+    fleet-vs-loop bar."""
+    from chip_smoke import run_city_world
+
+    _, _, one = small_city_card_vs_cpu(make_covtype_like(seed=0), seed=0)
+    f1, centers = one["cuda"]
+    ranks = run_city_world(2)
+    assert len(ranks) == 2
+    for r in ranks:
+        assert r["small"]["centers"] == centers.tolist()
+        assert max(abs(a - b) for a, b in zip(r["small"]["f1_curve"],
+                                              f1)) <= SCAN_F1_ATOL
 
 
 def test_city_device_memory_is_flat_in_windows(cuda):

@@ -83,6 +83,8 @@ def test_port_modules_import_without_jax_or_repro():
            "from chip_smoke import (phase_train, phase_train_card_vs_cpu,",
            "    phase_train_resume, phase_htl, train_card_vs_cpu,",
            "    htl_config)",
+           "from chip_smoke import (phase_city_shards, run_city_world,",
+           "    city_shard_rank, small_city_indices)",
            "bad = sorted(m for m in sys.modules",
            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))",
            "assert not bad, bad",
