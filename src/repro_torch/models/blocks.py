@@ -38,7 +38,8 @@ descending sort (``lax.top_k`` keeps the lower expert on ties, which
 dropping through the drop slot ``E*C``. The combine gathers each token's
 K expert rows and adds them in a fixed order (ascending expert, as the
 reference's scatter-add visits them) in the activation dtype: no atomics,
-so it is the same from run to run on the card.
+so it is the same from run to run on the card. The MoE FFN's router,
+dispatch, expert products and combine are spans (:mod:`repro_torch.spans`).
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ from repro_torch.sharding.partitioning import (
     DEFAULT_RULES, MULTIPOD_RULES, P, ParamSpec, current_mesh, hint,
     logical_to_pspec, mesh_axes, to_placements,
 )
+from repro_torch.spans import span
 
 NEG_INF = -1e30
 
@@ -490,20 +492,23 @@ def moe_dispatch(probs, K: int, C: int):
     each assignment, order (T*K,) the stable sort of assignments by
     expert, keep (T*K,) in sorted order, dest (T*K,) each sorted
     assignment's row of the (E*C + 1)-row dispatch buffer, E*C for a
-    dropped one, counts (E,) assignments per expert)."""
-    T, E = probs.shape
-    gate, idx = top_k(probs, K)
-    gate = gate / (gate.sum(dim=-1, keepdim=True) + 1e-9)
-    flat_e = idx.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    counts = expert_counts(flat_e, E)
-    starts = torch.cumsum(counts, 0) - counts
-    pos_in_e = torch.arange(T * K, device=probs.device) - starts[sorted_e]
-    keep = pos_in_e < C                                     # capacity drops
-    dest = torch.where(keep, sorted_e * C + pos_in_e,
-                       torch.full_like(pos_in_e, E * C))    # drop slot
-    return gate, flat_e, order, keep, dest, counts
+    dropped one, counts (E,) assignments per expert). The span
+    ``repro_torch.moe.dispatch``."""
+    with span("repro_torch.moe.dispatch"):
+        T, E = probs.shape
+        gate, idx = top_k(probs, K)
+        gate = gate / (gate.sum(dim=-1, keepdim=True) + 1e-9)
+        flat_e = idx.reshape(-1)
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        counts = expert_counts(flat_e, E)
+        starts = torch.cumsum(counts, 0) - counts
+        pos_in_e = torch.arange(T * K, device=probs.device) - \
+            starts[sorted_e]
+        keep = pos_in_e < C                                 # capacity drops
+        dest = torch.where(keep, sorted_e * C + pos_in_e,
+                           torch.full_like(pos_in_e, E * C))  # drop slot
+        return gate, flat_e, order, keep, dest, counts
 
 
 def _experts_combine(xt, w, gate, order, keep, dest, n_e: int, C: int,
@@ -512,30 +517,35 @@ def _experts_combine(xt, w, gate, order, keep, dest, n_e: int, C: int,
     last row is the drop slot) and the combine: each token's K slots
     gathered and added in ascending expert order, in the activation dtype,
     without atomics. ``w`` = (wi, wg, wo) of the n_e experts; ``e_ax``,
-    when given, is the logical axis of the buffer's expert dim."""
+    when given, is the logical axis of the buffer's expert dim. The spans
+    ``repro_torch.moe.experts`` (buffer and products) and
+    ``repro_torch.moe.combine``."""
     T, D = xt.shape
     wi, wg, wo = w
-    buf = xt.new_zeros((n_e * C + 1, D))
-    buf[dest] = xt[order // K]
-    h = buf[:-1].reshape(n_e, C, D)
-    if e_ax:
-        h = hint(h, (e_ax, None, None))
-    hh = F.silu(torch.bmm(h, wg)) * torch.bmm(h, wi)
-    y_e = torch.bmm(hh, wo)
-    if e_ax:
-        y_e = hint(y_e, (e_ax, None, None))
-    y_e = y_e.reshape(n_e * C, D)
+    with span("repro_torch.moe.experts"):
+        buf = xt.new_zeros((n_e * C + 1, D))
+        buf[dest] = xt[order // K]
+        h = buf[:-1].reshape(n_e, C, D)
+        if e_ax:
+            h = hint(h, (e_ax, None, None))
+        hh = F.silu(torch.bmm(h, wg)) * torch.bmm(h, wi)
+        y_e = torch.bmm(hh, wo)
+        if e_ax:
+            y_e = hint(y_e, (e_ax, None, None))
+        y_e = y_e.reshape(n_e * C, D)
 
-    gath = torch.where(keep[:, None], y_e[dest.clamp(max=n_e * C - 1)], 0.0)
-    contrib = gath * gate.reshape(-1)[order][:, None].to(xt.dtype)
-    # each token's K sorted slots, ascending: its experts in id order
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * K, device=xt.device)
-    slots = inv.reshape(T, K).sort(dim=-1).values
-    y = torch.zeros((T, D), dtype=xt.dtype, device=xt.device)
-    for k in range(K):                   # fixed order, activation dtype
-        y = y + contrib[slots[:, k]]
-    return y
+    with span("repro_torch.moe.combine"):
+        gath = torch.where(keep[:, None], y_e[dest.clamp(max=n_e * C - 1)],
+                           0.0)
+        contrib = gath * gate.reshape(-1)[order][:, None].to(xt.dtype)
+        # each token's K sorted slots, ascending: its experts in id order
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(T * K, device=xt.device)
+        slots = inv.reshape(T, K).sort(dim=-1).values
+        y = torch.zeros((T, D), dtype=xt.dtype, device=xt.device)
+        for k in range(K):               # fixed order, activation dtype
+            y = y + contrib[slots[:, k]]
+        return y
 
 
 def _aux_loss(counts, probs, m: MoEConfig, T: int):
@@ -556,8 +566,9 @@ def moe_ffn(p, x, cfg: ModelConfig):
     C = _capacity(T, m)
     xt = x.reshape(T, D)
 
-    logits = (xt @ p["router"]).float()                     # (T,E)
-    probs = torch.softmax(logits, dim=-1)
+    with span("repro_torch.moe.router"):
+        logits = (xt @ p["router"]).float()                 # (T,E)
+        probs = torch.softmax(logits, dim=-1)
     gate, _, order, keep, dest, counts = moe_dispatch(probs, K, C)
     # expert-parallel layout: the dispatch buffer's sharding agrees with
     # the expert weights' (workload-dependent)

@@ -47,6 +47,12 @@ or MLA latent entries into the buffers it is given (or rolls a window
 cache in place), overwrites the SSM / RG-LRU states and conv windows, and
 returns them. The reference returns new arrays; in place saves a copy of
 the whole cache per step.
+
+Serving spans (:mod:`repro_torch.spans`, on only under a profiler):
+``repro_torch.prefill`` and ``repro_torch.decode_step`` (each method
+whole), ``repro_torch.head`` (final norm and head) and
+``repro_torch.decode_attention`` (a buffered GQA decode layer's
+attention, projections to output).
 """
 from __future__ import annotations
 
@@ -67,6 +73,7 @@ from repro_torch.models.blocks import (
 from repro_torch.sharding.partitioning import (
     ParamModule, ParamSpec, flatten, hint, iter_init, torch_dtype,
 )
+from repro_torch.spans import span
 
 
 def _stack(t, n: int):
@@ -230,16 +237,17 @@ def _positions(pos, batch):
 
 def _gqa_decode_buffered(p, x, ck, cv, cfg, pos):
     """Decode against a fixed-size buffer: write at ``pos`` (in place),
-    mask > pos."""
-    q, k_new, v_new = blocks.gqa_project_qkv(p, x, cfg)
-    posb = _positions(pos, x.shape[0])
-    q = blocks.apply_rope(q, posb, cfg.rope_theta)
-    k_new = blocks.apply_rope(k_new, posb, cfg.rope_theta)
-    k = _write_at(ck, k_new, pos)
-    v = _write_at(cv, v_new, pos)
-    out = chunked_attention(q, k, v, causal=True, window=cfg.sliding_window,
-                            q_offset=pos)
-    return out_proj(out, p["wo"])
+    mask > pos. The span ``repro_torch.decode_attention``."""
+    with span("repro_torch.decode_attention"):
+        q, k_new, v_new = blocks.gqa_project_qkv(p, x, cfg)
+        posb = _positions(pos, x.shape[0])
+        q = blocks.apply_rope(q, posb, cfg.rope_theta)
+        k_new = blocks.apply_rope(k_new, posb, cfg.rope_theta)
+        k = _write_at(ck, k_new, pos)
+        v = _write_at(cv, v_new, pos)
+        out = chunked_attention(q, k, v, causal=True,
+                                window=cfg.sliding_window, q_offset=pos)
+        return out_proj(out, p["wo"])
 
 
 def _mla_decode_buffered(p, x, cache, pos, cfg):
@@ -494,6 +502,11 @@ class Model(nn.Module):
         # keep activations batch-sharded (not FSDP-sharded on d_model)
         return hint(h, ("batch", None, None))
 
+    def _final(self, h):
+        """The final norm and the head: the span ``repro_torch.head``."""
+        with span("repro_torch.head"):
+            return self._head(self._norm(h))
+
     def _head(self, h):
         if self.cfg.tie_embeddings:
             return h @ self.top["embed"].t()
@@ -644,19 +657,22 @@ class Model(nn.Module):
         to the token embeddings) or ``encoder_embeds`` (B, T, D) for the
         audio family. Returns (last_token_logits (B, V), cache). ``plain``
         takes every mixer's plain route (the dry-run's trace, whose fake
-        tensors no kernel can take)."""
-        cfg = self.cfg
-        tokens = batch["tokens"]
-        h = self._embed(tokens)
-        enc_out = None
-        if cfg.family == "audio":
-            enc_out = self._encode(batch["encoder_embeds"], plain=plain)
-        elif cfg.family == "vlm":
-            h = torch.cat([batch["frontend_embeds"].to(self.dtype), h], dim=1)
-        h, _, caches = self._trunk(h, collect_cache=True, enc_out=enc_out,
-                                   plain=plain)
-        logits = self._head(self._norm(h[:, -1:]))[:, 0]
-        return logits, self._pack_cache(caches, tokens.shape[0], h.shape[1])
+        tensors no kernel can take). The span ``repro_torch.prefill``."""
+        with span("repro_torch.prefill"):
+            cfg = self.cfg
+            tokens = batch["tokens"]
+            h = self._embed(tokens)
+            enc_out = None
+            if cfg.family == "audio":
+                enc_out = self._encode(batch["encoder_embeds"], plain=plain)
+            elif cfg.family == "vlm":
+                h = torch.cat([batch["frontend_embeds"].to(self.dtype), h],
+                              dim=1)
+            h, _, caches = self._trunk(h, collect_cache=True,
+                                       enc_out=enc_out, plain=plain)
+            logits = self._final(h[:, -1:])[:, 0]
+            return logits, self._pack_cache(caches, tokens.shape[0],
+                                            h.shape[1])
 
     def _pack_cache(self, caches, batch: int, seq_len: int):
         """Stack the per-layer entries into the reference's cache leaves
@@ -738,38 +754,41 @@ class Model(nn.Module):
         written in place (K/V or MLA latents at ``pos``, window caches
         rolled, recurrent states and conv windows overwritten) and
         returned; the audio family's cross-attention caches are read only.
+        The span ``repro_torch.decode_step``.
         """
-        cfg = self.cfg
-        pos = pos.to(self.device, torch.long) if torch.is_tensor(pos) \
-            else torch.full((), int(pos), dtype=torch.long, device=self.device)
-        h = self._embed(tokens)
-        if cfg.family in ("dense", "vlm", "moe"):
-            window_cache = bool(cfg.sliding_window)
-            names = ("ckv",) if cfg.mla is not None else ("k", "v")
-            for l, p_l in enumerate(self._attn_layers()):
-                c_l = {n: cache[n][l] for n in names}
-                h = _attn_block_decode(p_l, h, cfg, c_l, pos,
-                                       window_cache=window_cache)
-        elif cfg.family == "audio":
-            for l, p_l in enumerate(self.layers):
-                st = tuple(cache[n][l] for n in _ENCDEC_CACHE)
-                h = _encdec_block_decode(p_l, h, cfg, st, pos)
-        elif cfg.family == "ssm":
-            for l, p_l in enumerate(self.layers):
-                x = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
-                y, _ = ssd.ssd_decode(p_l["mixer"], x, cache["state"][l],
-                                      cache["conv"][l], cfg)
-                h = h + y
-        else:
-            for l, p_l in enumerate(self.periods):
-                for sub, kind, names in _PERIOD_CACHE:
-                    st = tuple(cache[n][l] for n in names)
-                    h = _hybrid_sub_decode(p_l[sub], h, cfg, kind, st, pos)
-            for l, p_l in enumerate(self.tail):
-                st = tuple(cache[n][l] for n in _TAIL_CACHE)
-                h = _hybrid_sub_decode(p_l, h, cfg, "rglru", st, pos)
-        logits = self._head(self._norm(h))[:, 0]
-        return logits, cache
+        with span("repro_torch.decode_step"):
+            cfg = self.cfg
+            pos = pos.to(self.device, torch.long) if torch.is_tensor(pos) \
+                else torch.full((), int(pos), dtype=torch.long,
+                                device=self.device)
+            h = self._embed(tokens)
+            if cfg.family in ("dense", "vlm", "moe"):
+                window_cache = bool(cfg.sliding_window)
+                names = ("ckv",) if cfg.mla is not None else ("k", "v")
+                for l, p_l in enumerate(self._attn_layers()):
+                    c_l = {n: cache[n][l] for n in names}
+                    h = _attn_block_decode(p_l, h, cfg, c_l, pos,
+                                           window_cache=window_cache)
+            elif cfg.family == "audio":
+                for l, p_l in enumerate(self.layers):
+                    st = tuple(cache[n][l] for n in _ENCDEC_CACHE)
+                    h = _encdec_block_decode(p_l, h, cfg, st, pos)
+            elif cfg.family == "ssm":
+                for l, p_l in enumerate(self.layers):
+                    x = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
+                    y, _ = ssd.ssd_decode(p_l["mixer"], x, cache["state"][l],
+                                          cache["conv"][l], cfg)
+                    h = h + y
+            else:
+                for l, p_l in enumerate(self.periods):
+                    for sub, kind, names in _PERIOD_CACHE:
+                        st = tuple(cache[n][l] for n in names)
+                        h = _hybrid_sub_decode(p_l[sub], h, cfg, kind, st, pos)
+                for l, p_l in enumerate(self.tail):
+                    st = tuple(cache[n][l] for n in _TAIL_CACHE)
+                    h = _hybrid_sub_decode(p_l, h, cfg, "rglru", st, pos)
+            logits = self._final(h)[:, 0]
+            return logits, cache
 
 
 def _run(body, p, h, remat: bool):

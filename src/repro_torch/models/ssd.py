@@ -12,7 +12,10 @@ roofline region (:func:`repro_torch.roofline.trace.region`, cost
 :func:`repro_torch.roofline.costs.ssd_scan_cost`) on either route.
 Decode is the O(1) recurrent step in torch ops, as in the reference,
 whose decode never reaches the Pallas kernel; it writes the state and
-conv caches it is given in place.
+conv caches it is given in place. Spans (:mod:`repro_torch.spans`):
+prefill's ``repro_torch.ssd.in_proj``, ``.ssd.conv``,
+``repro_torch.ssd_scan`` (the region) and ``.ssd.out``; decode's
+``repro_torch.ssd.decode``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 from repro_torch.roofline.costs import ssd_scan_cost
 from repro_torch.roofline.trace import region
 from repro_torch.sharding.partitioning import ParamSpec, current_mesh, hint
+from repro_torch.spans import span
 
 
 def ssd_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -95,56 +99,63 @@ def ssd_forward(p, x, cfg: ModelConfig, *, plain=False):
     s = cfg.ssm
     d_in, nh, P, N = ssd_dims(cfg)
 
-    z = x @ p["w_z"]                                   # (B,S,d_in)
-    u = x @ p["w_xbc"]                                 # (B,S,conv_ch)
-    xbc = F.silu(_causal_conv(u, p["conv_w"], p["conv_b"]))
-    xs, Bm, Cm = _split_xbc(xbc, d_in, N)
-    xs = xs.unflatten(-1, (nh, P))
-    dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"].float())
+    with span("repro_torch.ssd.in_proj"):
+        z = x @ p["w_z"]                               # (B,S,d_in)
+        u = x @ p["w_xbc"]                             # (B,S,conv_ch)
+        dt = x @ p["w_dt"]                             # (B,S,nh)
+    with span("repro_torch.ssd.conv"):
+        xbc = F.silu(_causal_conv(u, p["conv_w"], p["conv_b"]))
+        xs, Bm, Cm = _split_xbc(xbc, d_in, N)
+        xs = xs.unflatten(-1, (nh, P))
+        dt = F.softplus(dt.float() + p["dt_bias"])
+        A = -torch.exp(p["A_log"].float())
 
     with region("ssd_scan", lambda: ssd_scan_cost(xs, Bm, s.chunk_size)):
         if plain:
             y, h_final = ssd_chunked(xs, dt, A, Bm, Cm, s.chunk_size)
         else:
             y, h_final = ssd_scan(xs, dt, A, Bm, Cm, chunk=s.chunk_size)
-    y = y + xs * p["D_skip"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(B, S, d_in)
-    y = _gated_rmsnorm(y, z, p["gate_norm"], cfg.norm_eps)
+    with span("repro_torch.ssd.out"):
+        y = y + xs * p["D_skip"].to(x.dtype)[None, None, :, None]
+        y = y.reshape(B, S, d_in)
+        y = _gated_rmsnorm(y, z, p["gate_norm"], cfg.norm_eps)
+        y = y @ p["w_out"]
     # the reference recomputes x @ w_xbc here; the pre-conv u is the same
     conv_tail = u[:, S - (s.conv_width - 1):, :]
-    return y @ p["w_out"], (h_final, conv_tail)
+    return y, (h_final, conv_tail)
 
 
 def ssd_decode(p, x, ssm_state, conv_state, cfg: ModelConfig):
     """One-token recurrent step; writes ``ssm_state`` and ``conv_state``
-    in place and returns them.
+    in place and returns them. The span ``repro_torch.ssd.decode``.
 
     x: (B,1,D); ssm_state: (B,H,P,N); conv_state: (B,cw-1,conv_ch).
     """
-    B = x.shape[0]
-    d_in, nh, P, N = ssd_dims(cfg)
+    with span("repro_torch.ssd.decode"):
+        B = x.shape[0]
+        d_in, nh, P, N = ssd_dims(cfg)
 
-    z = x @ p["w_z"]                                   # (B,1,d_in)
-    u = x @ p["w_xbc"]                                 # (B,1,conv_ch)
-    window = torch.cat([conv_state, u], dim=1)         # (B,cw,conv_ch)
-    conv_out = torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"]
-    xbc = F.silu(conv_out)[:, None, :]                 # (B,1,conv_ch)
+        z = x @ p["w_z"]                                   # (B,1,d_in)
+        u = x @ p["w_xbc"]                                 # (B,1,conv_ch)
+        window = torch.cat([conv_state, u], dim=1)         # (B,cw,conv_ch)
+        conv_out = torch.einsum("bwc,wc->bc", window, p["conv_w"]) + \
+            p["conv_b"]
+        xbc = F.silu(conv_out)[:, None, :]                 # (B,1,conv_ch)
 
-    xs, Bm, Cm = _split_xbc(xbc, d_in, N)
-    xs = xs.reshape(B, nh, P)
-    Bm, Cm = Bm[:, 0], Cm[:, 0]                        # (B,N)
-    dt = F.softplus((x @ p["w_dt"]).float()[:, 0] + p["dt_bias"])
-    A = -torch.exp(p["A_log"].float())                 # (H,)
+        xs, Bm, Cm = _split_xbc(xbc, d_in, N)
+        xs = xs.reshape(B, nh, P)
+        Bm, Cm = Bm[:, 0], Cm[:, 0]                        # (B,N)
+        dt = F.softplus((x @ p["w_dt"]).float()[:, 0] + p["dt_bias"])
+        A = -torch.exp(p["A_log"].float())                 # (H,)
 
-    decay = torch.exp(dt * A).to(x.dtype)              # (B,H)
-    dx = dt.to(x.dtype)[..., None] * xs                # (B,H,P)
-    new_state = ssm_state * decay[:, :, None, None] + \
-        torch.einsum("bhp,bn->bhpn", dx, Bm.to(x.dtype))
-    y = torch.einsum("bhpn,bn->bhp", new_state, Cm.to(x.dtype))
-    y = y + xs * p["D_skip"].to(x.dtype)[None, :, None]
-    y = y.reshape(B, 1, d_in)
-    y = _gated_rmsnorm(y, z, p["gate_norm"], cfg.norm_eps)
-    ssm_state.copy_(new_state)
-    conv_state.copy_(window[:, 1:, :])
-    return y @ p["w_out"], (ssm_state, conv_state)
+        decay = torch.exp(dt * A).to(x.dtype)              # (B,H)
+        dx = dt.to(x.dtype)[..., None] * xs                # (B,H,P)
+        new_state = ssm_state * decay[:, :, None, None] + \
+            torch.einsum("bhp,bn->bhpn", dx, Bm.to(x.dtype))
+        y = torch.einsum("bhpn,bn->bhp", new_state, Cm.to(x.dtype))
+        y = y + xs * p["D_skip"].to(x.dtype)[None, :, None]
+        y = y.reshape(B, 1, d_in)
+        y = _gated_rmsnorm(y, z, p["gate_norm"], cfg.norm_eps)
+        ssm_state.copy_(new_state)
+        conv_state.copy_(window[:, 1:, :])
+        return y @ p["w_out"], (ssm_state, conv_state)

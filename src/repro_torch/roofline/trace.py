@@ -31,7 +31,9 @@ costs of :mod:`repro_torch.roofline.costs`, so a step counts the work the
 function needs whichever route runs: a CUDA kernel launched through
 ``ctypes`` is invisible to any dispatch mode, and the plain route's
 ``chunked_attention`` computes whole masked blocks. Outside a trace a
-region does nothing.
+region counts nothing. A region is also the span ``repro_torch.<name>``
+(:func:`repro_torch.spans.span`), so a profiled run sees the mixers'
+boundaries too.
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ from contextlib import contextmanager
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.spans import PREFIX, span
 
 # The analyze_hlo names of the functional collectives.
 _COLLECTIVES = {
@@ -161,17 +165,19 @@ class _Counter(TorchDispatchMode):
 def region(name: str, cost):
     """Count ``cost`` ((bytes, flops), or a function returning them, called
     only inside a trace) once for the block, and none of its ops. Nested
-    regions count as the outer one."""
+    regions count as the outer one. The block is the span
+    ``repro_torch.<name>``."""
     counter = _ACTIVE[-1] if _ACTIVE else None
-    if counter is None or counter.suppress:
-        yield
-        return
-    counter.add_region(name, *(cost() if callable(cost) else cost))
-    counter.suppress += 1
-    try:
-        yield
-    finally:
-        counter.suppress -= 1
+    with span(PREFIX + name):
+        if counter is None or counter.suppress:
+            yield
+            return
+        counter.add_region(name, *(cost() if callable(cost) else cost))
+        counter.suppress += 1
+        try:
+            yield
+        finally:
+            counter.suppress -= 1
 
 
 @contextmanager

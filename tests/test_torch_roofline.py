@@ -133,7 +133,10 @@ def test_analyze_trace_synthetic_program():
     assert coll["internode_bytes"] == 12 * ar_bytes
 
 
-def test_region_counts_its_cost_once_and_none_of_its_ops():
+@pytest.mark.parametrize("profiled", [False, True])
+def test_region_counts_its_cost_once_and_none_of_its_ops(profiled):
+    """Also under a profiler, where the region is the span
+    ``repro_torch.mixer``: the same counts."""
     x, w = torch.zeros(8, 16), torch.zeros(16, 4)
 
     def fn():
@@ -141,7 +144,14 @@ def test_region_counts_its_cost_once_and_none_of_its_ops():
             for _ in range(3):
                 x @ w
         x @ w
-    a = analyze_trace(fn)
+    if profiled:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            a = analyze_trace(fn)
+        assert [e.name for e in prof.events()
+                if e.name.startswith("repro_torch.")] == ["repro_torch.mixer"]
+    else:
+        a = analyze_trace(fn)
     assert a["flops"] == 1000.0 + 2 * 8 * 4 * 16
     assert a["regions"] == {"mixer": {"bytes": 100.0, "flops": 1000.0,
                                       "calls": 1}}
