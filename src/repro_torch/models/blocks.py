@@ -139,7 +139,10 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     G = H // KV
     qg = q.reshape(B, S, KV, G, hd)
     k_pos = torch.arange(T, device=q.device)
-    offset = torch.as_tensor(q_offset, device=q.device)
+    # an int offset is a fill, not a copy from the host (which would sync
+    # it, and which a CUDA graph cannot capture)
+    offset = q_offset.to(q.device) if torch.is_tensor(q_offset) else \
+        torch.full((), q_offset, dtype=torch.long, device=q.device)
     if S <= chunk or S % chunk != 0:
         q_pos = offset[..., None] + torch.arange(S, device=q.device)
         out = _attend_chunk(qg, k, v, q_pos, k_pos, causal, window)

@@ -46,13 +46,17 @@ The decode cache is updated in place: ``decode_step`` writes the new K/V
 or MLA latent entries into the buffers it is given (or rolls a window
 cache in place), overwrites the SSM / RG-LRU states and conv windows, and
 returns them. The reference returns new arrays; in place saves a copy of
-the whole cache per step.
+the whole cache per step. On the card the step is one CUDA graph,
+captured at a cache's second step and replayed from its third
+(:mod:`repro_torch.models.decode_graph`); ``_decode_body`` is the eager
+step it captures.
 
 Serving spans (:mod:`repro_torch.spans`, on only under a profiler):
 ``repro_torch.prefill`` and ``repro_torch.decode_step`` (each method
 whole), ``repro_torch.head`` (final norm and head) and
 ``repro_torch.decode_attention`` (a buffered GQA decode layer's
-attention, projections to output).
+attention, projections to output); ``repro_torch.decode_graph.capture``
+and ``.decode_graph.replay`` inside ``decode_step``.
 """
 from __future__ import annotations
 
@@ -64,7 +68,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import blocks, rglru, ssd
+from repro_torch.models import blocks, decode_graph, rglru, ssd
 from repro_torch.models.blocks import (
     _proj_heads, chunked_attention, cross_attention, gqa_attention,
     gqa_template, mla_attention, mla_template, mlp, mlp_template, moe_ffn,
@@ -338,6 +342,15 @@ class Model(nn.Module):
             template, n = stacks.get(name, (None, 0))
             setattr(self, name, nn.ModuleList(
                 ParamModule(template, dev, self.dtype) for _ in range(n)))
+        self._decode_graph = None        # decode_graph.DecodeGraph
+
+    def __getstate__(self):
+        # a CUDA graph neither pickles nor copies: a copy starts without one
+        return dict(super().__getstate__(), _decode_graph=None)
+
+    def _apply(self, fn, recurse=True):
+        self._decode_graph = None        # tensors moved or cast: drop it
+        return super()._apply(fn, recurse)
 
     @property
     def device(self) -> torch.device:
@@ -417,6 +430,7 @@ class Model(nn.Module):
         """Copy {``/``-joined reference path: tensor} into the parameters
         (cast to their dtype, moved to their device). Every template leaf
         must be present with its shape; nothing else may be."""
+        self._decode_graph = None
         want = dict(flatten(self.template()))
         if set(flat) != set(want):
             raise ValueError(f"parameter paths differ: missing "
@@ -475,6 +489,7 @@ class Model(nn.Module):
         """Draw every parameter on the model's device (the reference's
         initialisers, the port's own random stream: see
         :mod:`repro_torch.sharding.partitioning`), one leaf at a time."""
+        self._decode_graph = None
         want = dict(flatten(self.template()))
         for path, value in iter_init(self.template(), seed, self.dtype,
                                      self.device):
@@ -497,8 +512,9 @@ class Model(nn.Module):
             h = self.top["embed"][tokens.long()].to(self.dtype)
         if self.cfg.family == "hybrid":           # gemma-style scaling
             # sqrt(d_model) rounded to the model dtype, as the reference
-            h = h * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype,
-                                 device=h.device)
+            # (a fill, not a copy from the host: the decode graph captures it)
+            h = h * torch.full((), self.cfg.d_model ** 0.5, dtype=self.dtype,
+                               device=h.device)
         # keep activations batch-sharded (not FSDP-sharded on d_model)
         return hint(h, ("batch", None, None))
 
@@ -754,41 +770,66 @@ class Model(nn.Module):
         written in place (K/V or MLA latents at ``pos``, window caches
         rolled, recurrent states and conv windows overwritten) and
         returned; the audio family's cross-attention caches are read only.
-        The span ``repro_torch.decode_step``.
+        On the card, a replay of a CUDA graph of :meth:`_decode_body`
+        from a cache's third step on (:mod:`repro_torch.models.
+        decode_graph`): the same kernels, bitwise the same logits, returned
+        as a fresh tensor. The graph reads the parameters at the addresses
+        it was captured on: ``load_params``, ``init`` and moves or casts of
+        the module drop it, and nothing else may swap them (no
+        ``torch.func.functional_call`` of this method on the card). The
+        span ``repro_torch.decode_step``.
         """
         with span("repro_torch.decode_step"):
-            cfg = self.cfg
-            pos = pos.to(self.device, torch.long) if torch.is_tensor(pos) \
-                else torch.full((), int(pos), dtype=torch.long,
-                                device=self.device)
-            h = self._embed(tokens)
-            if cfg.family in ("dense", "vlm", "moe"):
-                window_cache = bool(cfg.sliding_window)
-                names = ("ckv",) if cfg.mla is not None else ("k", "v")
-                for l, p_l in enumerate(self._attn_layers()):
-                    c_l = {n: cache[n][l] for n in names}
-                    h = _attn_block_decode(p_l, h, cfg, c_l, pos,
-                                           window_cache=window_cache)
-            elif cfg.family == "audio":
-                for l, p_l in enumerate(self.layers):
-                    st = tuple(cache[n][l] for n in _ENCDEC_CACHE)
-                    h = _encdec_block_decode(p_l, h, cfg, st, pos)
-            elif cfg.family == "ssm":
-                for l, p_l in enumerate(self.layers):
-                    x = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
-                    y, _ = ssd.ssd_decode(p_l["mixer"], x, cache["state"][l],
-                                          cache["conv"][l], cfg)
-                    h = h + y
-            else:
-                for l, p_l in enumerate(self.periods):
-                    for sub, kind, names in _PERIOD_CACHE:
-                        st = tuple(cache[n][l] for n in names)
-                        h = _hybrid_sub_decode(p_l[sub], h, cfg, kind, st, pos)
-                for l, p_l in enumerate(self.tail):
-                    st = tuple(cache[n][l] for n in _TAIL_CACHE)
-                    h = _hybrid_sub_decode(p_l, h, cfg, "rglru", st, pos)
-            logits = self._final(h)[:, 0]
-            return logits, cache
+            if decode_graph.refusal(cache, tokens, pos) is not None:
+                decode_graph.count(eager=1)
+                return self._decode_body(cache, tokens, pos)
+            key = decode_graph.graph_key(cache, tokens, pos, self.cfg)
+            g = self._decode_graph
+            if g is None or g.key != key:
+                self._decode_graph = None    # the old graph's pool goes first
+                self._decode_graph = g = decode_graph.DecodeGraph(key, cache,
+                                                                  self)
+                return g.warm_up(self._decode_body, cache, tokens, pos)
+            if g.graph is None:
+                g.capture(self._decode_body, cache, tokens, pos)
+            return g.replay(tokens, pos), cache
+
+    def _decode_body(self, cache, tokens, pos):
+        """The eager decode step (:meth:`decode_step`'s arguments and
+        return, called under its ``no_grad``), which the decode graph
+        captures."""
+        cfg = self.cfg
+        pos = pos.to(self.device, torch.long) if torch.is_tensor(pos) \
+            else torch.full((), int(pos), dtype=torch.long,
+                            device=self.device)
+        h = self._embed(tokens)
+        if cfg.family in ("dense", "vlm", "moe"):
+            window_cache = bool(cfg.sliding_window)
+            names = ("ckv",) if cfg.mla is not None else ("k", "v")
+            for l, p_l in enumerate(self._attn_layers()):
+                c_l = {n: cache[n][l] for n in names}
+                h = _attn_block_decode(p_l, h, cfg, c_l, pos,
+                                       window_cache=window_cache)
+        elif cfg.family == "audio":
+            for l, p_l in enumerate(self.layers):
+                st = tuple(cache[n][l] for n in _ENCDEC_CACHE)
+                h = _encdec_block_decode(p_l, h, cfg, st, pos)
+        elif cfg.family == "ssm":
+            for l, p_l in enumerate(self.layers):
+                x = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
+                y, _ = ssd.ssd_decode(p_l["mixer"], x, cache["state"][l],
+                                      cache["conv"][l], cfg)
+                h = h + y
+        else:
+            for l, p_l in enumerate(self.periods):
+                for sub, kind, names in _PERIOD_CACHE:
+                    st = tuple(cache[n][l] for n in names)
+                    h = _hybrid_sub_decode(p_l[sub], h, cfg, kind, st, pos)
+            for l, p_l in enumerate(self.tail):
+                st = tuple(cache[n][l] for n in _TAIL_CACHE)
+                h = _hybrid_sub_decode(p_l, h, cfg, "rglru", st, pos)
+        logits = self._final(h)[:, 0]
+        return logits, cache
 
 
 def _run(body, p, h, remat: bool):

@@ -21,7 +21,10 @@ Every name starts with ``repro_torch.``; the set is fixed:
   the host);
 * model (``models/model.py``): ``prefill``, ``decode_step``, ``head``
   (final norm and head), ``decode_attention`` (a buffered GQA decode
-  layer's attention, projections to output);
+  layer's attention, projections to output); inside ``decode_step`` on
+  the card, ``decode_graph.capture`` and ``decode_graph.replay``
+  (``models/decode_graph.py``: a replay runs none of the step's inner
+  spans);
 * MoE FFN (``models/blocks.py``): ``moe.router``, ``moe.dispatch``,
   ``moe.experts`` (dispatch buffer and the expert products),
   ``moe.combine``;

@@ -35,6 +35,12 @@ the sequential card run; the MoE dispatch on the card selecting what it
 selects on the CPU (bfloat16 ties included), the MoE FFN bitwise
 deterministic on the card and within 1e-5 of the CPU in float32, and the
 reduced MLA, MoE, vlm and audio models on the card against the CPU.
+The decode step's CUDA graph (``models/decode_graph.py``): for every
+family that decodes, in float32 and bfloat16, with per-slot and shared
+positions, ten steps through ``Model.decode_step`` bitwise equal (logits,
+tokens, caches) to the eager body on a clone of the caches, with one
+warm-up, one capture and nine replays; a continuous batcher with the
+graph serving the tokens and leaving the cache of one without it.
 
 Training: ``loss_fn`` on a card model launches no kernel (the plain route)
 and gives every parameter a finite gradient, while ``prefill`` on the same
@@ -1006,3 +1012,128 @@ def test_fake_world_and_dtensor_on_the_cards_torch():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "OK" in proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# The decode step as one CUDA graph (models/decode_graph.py)
+# ---------------------------------------------------------------------------
+
+# Every family that decodes: (arch, config changes); the window case rolls
+# llama's cache, recurrentgemma's 5 layers hold a period with attention.
+DECODE_GRAPH_CASES = {
+    "dense": ("llama3.2-3b", {}),
+    "dense-window": ("llama3.2-3b", {"sliding_window": 16}),
+    "moe": ("olmoe-1b-7b", {}),
+    "mla": ("minicpm3-4b", {}),
+    "moe-mla": ("deepseek-v3-671b", {}),
+    "ssm": ("mamba2-1.3b", {}),
+    "hybrid": ("recurrentgemma-9b", {"num_layers": 5}),
+    "audio": ("whisper-medium", {}),
+    "vlm": ("llava-next-mistral-7b", {}),
+}
+DECODE_STEPS = 10
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos_kind", ["per_slot", "shared"])
+@pytest.mark.parametrize("case", list(DECODE_GRAPH_CASES))
+def test_decode_graph_replays_are_bitwise_the_eager_step(cuda, case,
+                                                         pos_kind, dtype):
+    """Ten steps through ``Model.decode_step`` (one eager warm-up, one
+    capture that replays once, eight replays) give the logits and greedy
+    tokens of the eager body run on a clone of the same caches, bit for
+    bit, and the same caches after; logits returned earlier are not
+    overwritten by later replays; the graph dies with the cache."""
+    from chip_smoke import cache_len
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import decode_graph as dg
+    from repro_torch.serving import pad_cache
+
+    arch, changes = DECODE_GRAPH_CASES[case]
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    model = build_model(cfg, dtype=dtype).init(seed=0)
+    batch = lm_batch(cfg, 2, 24, seed=3)
+    T = cache_len(batch)
+    logits, cache = model.prefill(batch)
+    cache = pad_cache(model, cache, DECODE_STEPS, 2, T)
+    ref_cache = {k: v.clone() for k, v in cache.items()}
+    tok = ref_tok = logits.argmax(-1)
+    dg.reset_decode_graph_stats()
+    kept = []
+    for i in range(DECODE_STEPS):
+        pos = torch.full((2,) if pos_kind == "per_slot" else (), T + i,
+                         dtype=torch.long, device=cuda)
+        logits, out = model.decode_step(cache, tok[:, None], pos)
+        ref, ref_cache = model._decode_body(ref_cache, ref_tok[:, None],
+                                            pos.clone())
+        assert out is cache
+        assert torch.equal(logits, ref), i
+        kept.append((logits, ref.clone()))
+        tok, ref_tok = logits.argmax(-1), ref.argmax(-1)
+        assert torch.equal(tok, ref_tok), i
+    for k in cache:
+        assert torch.equal(cache[k], ref_cache[k]), k
+    for got, want in kept:
+        assert torch.equal(got, want)
+    stats = dg.decode_graph_stats()
+    assert (stats["eager"], stats["captures"], stats["replays"]) == \
+        (1, 1, DECODE_STEPS - 1), stats
+    del cache, out                   # the graph dies with its cache
+    assert model._decode_graph is None
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-1.3b"])
+def test_batcher_with_the_decode_graph_matches_the_eager_batcher(cuda,
+                                                                 arch):
+    """A continuous batcher in bfloat16, refills spliced between replays,
+    serves the tokens it serves with the graph bypassed (``decode_step``
+    bound to the eager body), and leaves the same cache: a recurrent
+    state advanced once per step. One capture, at the batcher's second
+    step; the graph goes when the batcher's cache does."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import decode_graph as dg
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, dtype="bfloat16").init(seed=0)
+    rng = np.random.default_rng(0)
+    lens = [(int(rng.integers(4, 30)), int(rng.integers(3, 12)))
+            for _ in range(9)]
+
+    def serve(eager):
+        inner = model._decode_body if eager else model.decode_step
+        steps = []
+
+        def step(cache, tokens, pos):
+            steps.append(1)
+            return inner(cache, tokens, pos)
+        model.decode_step = step
+        try:
+            b = ContinuousBatcher(model, slots=3, max_len=48)
+            reqs = [Request(i, rng_tokens(i, n), m)
+                    for i, (n, m) in enumerate(lens)]
+            for r in reqs:
+                b.submit(r)
+            b.run()
+        finally:
+            del model.decode_step
+        return [r.out for r in reqs], b.cache, len(steps)
+
+    def rng_tokens(i, n):
+        return np.random.default_rng(100 + i).integers(
+            0, cfg.vocab_size, n)
+
+    dg.reset_decode_graph_stats()
+    out_g, cache_g, n_steps = serve(eager=False)
+    stats = dg.decode_graph_stats()
+    out_e, cache_e, n_eager = serve(eager=True)
+    assert out_g == out_e and n_steps == n_eager
+    assert all(len(o) >= 3 for o in out_g)
+    for k in cache_g:
+        assert torch.equal(cache_g[k], cache_e[k]), k
+    assert (stats["eager"], stats["captures"], stats["replays"]) == \
+        (1, 1, n_steps - 1), stats
+    del cache_g                      # the batcher's cache takes the graph
+    assert model._decode_graph is None
