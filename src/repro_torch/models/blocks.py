@@ -26,11 +26,12 @@ positions are per sequence). Cross-attention and MLA attend through
 q/k head dim differs from its v head dim, which the flash kernel does not
 take). Prefill attention runs inside a roofline region
 (:func:`repro_torch.roofline.trace.region`): a trace counts the work the
-attention needs (:func:`repro_torch.roofline.costs.attention_cost`),
-whichever route runs. The reference's ``hint`` calls stand where they
-stand there (no-ops without a mesh, :func:`repro_torch.sharding.
-partitioning.hint`), and :func:`moe_ffn_shard_map` runs the reference's
-expert-parallel schedule under a mesh.
+attention needs (:func:`repro_torch.roofline.costs.attention_cost`, for
+MLA :func:`~repro_torch.roofline.costs.mla_cost`), whichever route
+runs. The reference's ``hint`` calls stand where they stand there (no-ops
+without a mesh, :func:`repro_torch.sharding.partitioning.hint`), and
+:func:`moe_ffn_shard_map` runs the reference's expert-parallel schedule
+under a mesh.
 
 MoE dispatch keeps exactly the reference's assignments: top-k by a stable
 descending sort (``lax.top_k`` keeps the lower expert on ties, which
@@ -39,7 +40,8 @@ dropping through the drop slot ``E*C``. The combine gathers each token's
 K expert rows and adds them in a fixed order (ascending expert, as the
 reference's scatter-add visits them) in the activation dtype: no atomics,
 so it is the same from run to run on the card. The MoE FFN's router,
-dispatch, expert products and combine are spans (:mod:`repro_torch.spans`).
+dispatch, expert products and combine are spans (:mod:`repro_torch.spans`),
+and so are MLA's q, latent and out products (:func:`mla_attention`).
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 from repro_torch.kernels.flash_attention import flash_attention_bshd
-from repro_torch.roofline.costs import attention_cost
+from repro_torch.roofline.costs import attention_cost, mla_cost
 from repro_torch.roofline.trace import region
 from repro_torch.sharding.partitioning import (
     DEFAULT_RULES, MULTIPOD_RULES, P, ParamSpec, current_mesh, hint,
@@ -337,15 +339,18 @@ def mla_template(cfg: ModelConfig) -> dict:
 
 
 def _mla_q(p, x, m: MLAConfig, cfg, positions):
-    if m.q_lora_rank:
-        qa = rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-        q = _proj_heads(qa, p["wq_b"])
-    else:
-        q = _proj_heads(x, p["wq"])
-    q_nope = q[..., :m.qk_nope_head_dim]
-    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
-                        cfg.rope_theta)
-    return q_nope, q_rope
+    """(q_nope, q_rope): the q down-projection, norm and up-projection
+    (or the full-rank q), then RoPE. The span ``repro_torch.mla.q``."""
+    with span("repro_torch.mla.q"):
+        if m.q_lora_rank:
+            qa = rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+            q = _proj_heads(qa, p["wq_b"])
+        else:
+            q = _proj_heads(x, p["wq"])
+        q_nope = q[..., :m.qk_nope_head_dim]
+        q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                            cfg.rope_theta)
+        return q_nope, q_rope
 
 
 def mla_attention(p, x, cfg: ModelConfig, *, positions=None):
@@ -354,7 +359,14 @@ def mla_attention(p, x, cfg: ModelConfig, *, positions=None):
     rope key after RoPE, as the absorbed decode reads it and writes its
     own entries. The reference caches that key before RoPE here, so its
     decode after a prefill rotates the prompt's keys wrongly (ROADMAP
-    Queue 3); the port caches what its decode reads."""
+    Queue 3); the port caches what its decode reads.
+
+    Spans: ``repro_torch.mla.q`` (:func:`_mla_q`), ``repro_torch.mla.kv``
+    (the latent, its norm, the rope key, the k/v up-projection and the
+    cache entry), the region ``attention`` (the expanded q and k and
+    :func:`chunked_attention`, counted by
+    :func:`~repro_torch.roofline.costs.mla_cost`) and
+    ``repro_torch.mla.out`` (the out product)."""
     B, S, D = x.shape
     m = cfg.mla
     H = cfg.num_heads
@@ -363,20 +375,24 @@ def mla_attention(p, x, cfg: ModelConfig, *, positions=None):
         positions = torch.arange(S, device=x.device)[None, :]
     q_nope, q_rope = _mla_q(p, x, m, cfg, positions)
 
-    kv_a = x @ p["wkv_a"]                                   # (B,S,r+rope)
-    c_kv = rmsnorm(kv_a[..., :r], p["kv_norm"], cfg.norm_eps)
-    k_rope = apply_rope(kv_a[..., None, r:], positions,
-                        cfg.rope_theta)                     # (B,S,1,rope)
-    kv = _proj_heads(c_kv, p["wkv_b"])
-    k_nope = kv[..., :m.qk_nope_head_dim]
-    v = kv[..., m.qk_nope_head_dim:]
+    with span("repro_torch.mla.kv"):
+        kv_a = x @ p["wkv_a"]                               # (B,S,r+rope)
+        c_kv = rmsnorm(kv_a[..., :r], p["kv_norm"], cfg.norm_eps)
+        k_rope = apply_rope(kv_a[..., None, r:], positions,
+                            cfg.rope_theta)                 # (B,S,1,rope)
+        kv = _proj_heads(c_kv, p["wkv_b"])
+        k_nope = kv[..., :m.qk_nope_head_dim]
+        v = kv[..., m.qk_nope_head_dim:]
+        cache = torch.cat([c_kv, k_rope[:, :, 0]], dim=-1)
 
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)],
-                  dim=-1)
-    out = chunked_attention(q, k, v, causal=cfg.causal)
-    cache = torch.cat([c_kv, k_rope[:, :, 0]], dim=-1)
-    return out_proj(out, p["wo"]), cache
+    with region("attention", lambda: mla_cost(q_nope, q_rope, v,
+                                              causal=cfg.causal)):
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope,
+                       k_rope.expand(B, S, H, m.qk_rope_head_dim)], dim=-1)
+        out = chunked_attention(q, k, v, causal=cfg.causal)
+    with span("repro_torch.mla.out"):
+        return out_proj(out, p["wo"]), cache
 
 
 def mla_absorbed(p, q_nope, q_rope, cache, cfg: ModelConfig, valid=None):

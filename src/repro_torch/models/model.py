@@ -54,8 +54,9 @@ step it captures.
 Serving spans (:mod:`repro_torch.spans`, on only under a profiler):
 ``repro_torch.prefill`` and ``repro_torch.decode_step`` (each method
 whole), ``repro_torch.head`` (final norm and head) and
-``repro_torch.decode_attention`` (a buffered GQA decode layer's
-attention, projections to output); ``repro_torch.decode_graph.capture``
+``repro_torch.decode_attention`` (a buffered GQA or MLA decode layer's
+attention, projections to output; MLA's holds ``repro_torch.mla.q``,
+``.mla.kv`` and ``.mla.absorbed``); ``repro_torch.decode_graph.capture``
 and ``.decode_graph.replay`` inside ``decode_step``.
 """
 from __future__ import annotations
@@ -257,12 +258,20 @@ def _gqa_decode_buffered(p, x, ck, cv, cfg, pos):
 def _mla_decode_buffered(p, x, cache, pos, cfg):
     """MLA absorbed decode against a fixed-size latent buffer: write the
     new entry at ``pos`` (in place), mask entries beyond each sequence's
-    position."""
-    posb = _positions(pos, x.shape[0])
-    q_nope, q_rope = blocks._mla_q(p, x, cfg.mla, cfg, posb)
-    cache = _write_at(cache, blocks.mla_new_entry(p, x, cfg, posb), pos)
-    valid = torch.arange(cache.shape[1], device=x.device)[None, :] <= posb
-    return blocks.mla_absorbed(p, q_nope, q_rope, cache, cfg, valid)
+    position. The span ``repro_torch.decode_attention``, holding
+    ``repro_torch.mla.q``, ``repro_torch.mla.kv`` (the new entry and its
+    write) and ``repro_torch.mla.absorbed`` (the absorbed attention and
+    the out product)."""
+    with span("repro_torch.decode_attention"):
+        posb = _positions(pos, x.shape[0])
+        q_nope, q_rope = blocks._mla_q(p, x, cfg.mla, cfg, posb)
+        with span("repro_torch.mla.kv"):
+            cache = _write_at(cache, blocks.mla_new_entry(p, x, cfg, posb),
+                              pos)
+        with span("repro_torch.mla.absorbed"):
+            valid = torch.arange(cache.shape[1],
+                                 device=x.device)[None, :] <= posb
+            return blocks.mla_absorbed(p, q_nope, q_rope, cache, cfg, valid)
 
 
 def _gqa_decode_window(p, x, ck, cv, cfg, pos):

@@ -81,6 +81,20 @@ def ssd_cost(shape):
     return nbytes, flops
 
 
+def mla_attention_cost(shape):
+    """(bytes, flops) of MLA's expanded attention (prefill): q, k and v
+    read once and o written once, k and v expanded to every head; per
+    kept (query, key) pair and head, 2 d_qk operations for q.k and 2 d_v
+    for p.v. ``shape`` is (B, H, Sq, Skv, d_qk, d_v, causal, dtype name);
+    the queries are the last Sq of the Skv positions."""
+    B, H, Sq, Skv, d_qk, d_v, causal, dtype = shape
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * B * H * (Sq + Skv) * (d_qk + d_v)
+    pairs = flash_pairs((B, H, H, Sq, Skv, d_qk, causal, 0, Skv - Sq,
+                         dtype))
+    return nbytes, 2 * (d_qk + d_v) * B * H * pairs
+
+
 def rglru_cost(shape):
     """(bytes, flops): a and b read once, h written once, float32; one FMA
     per element. ``shape`` is (B, S, W)."""
@@ -109,6 +123,15 @@ def attention_cost(q, k, *, causal, window, q_offset=0):
     _, Skv, KV, _ = _local_shape(k)
     return flash_cost((B, H, KV, Sq, Skv, d, bool(causal), int(window or 0),
                        int(q_offset), _dtype_name(q)))
+
+
+def mla_cost(q_nope, q_rope, v, *, causal):
+    """:func:`mla_attention_cost` of attention over q = [q_nope, q_rope]
+    (B,S,H,d_qk), its expanded k and v (B,S,H,d_v)."""
+    B, S, H, nope = _local_shape(q_nope)
+    d_qk = nope + _local_shape(q_rope)[-1]
+    return mla_attention_cost((B, H, S, S, d_qk, _local_shape(v)[-1],
+                               bool(causal), _dtype_name(q_nope)))
 
 
 def ssd_scan_cost(x, Bm, chunk):

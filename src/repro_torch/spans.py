@@ -20,14 +20,20 @@ Every name starts with ``repro_torch.``; the set is fixed:
   ``serve.splice``, ``serve.sample`` (the decode argmax and its copy to
   the host);
 * model (``models/model.py``): ``prefill``, ``decode_step``, ``head``
-  (final norm and head), ``decode_attention`` (a buffered GQA decode
-  layer's attention, projections to output); inside ``decode_step`` on
-  the card, ``decode_graph.capture`` and ``decode_graph.replay``
-  (``models/decode_graph.py``: a replay runs none of the step's inner
-  spans);
+  (final norm and head), ``decode_attention`` (a buffered GQA or MLA
+  decode layer's attention, projections to output); inside
+  ``decode_step`` on the card, ``decode_graph.capture`` and
+  ``decode_graph.replay`` (``models/decode_graph.py``: a replay runs none
+  of the step's inner spans);
 * MoE FFN (``models/blocks.py``): ``moe.router``, ``moe.dispatch``,
   ``moe.experts`` (dispatch buffer and the expert products),
   ``moe.combine``;
+* MLA (``models/blocks.py``, ``models/model.py``): ``mla.q`` (q
+  down-projection, norm, up-projection, RoPE), ``mla.kv`` (prefill: the
+  latent, its norm, the rope key, the k/v up-projection and the cache
+  entry; decode: the new entry and its write), ``mla.out`` (prefill's out
+  product), ``mla.absorbed`` (decode: the absorbed attention and the out
+  product);
 * SSD mixer (``models/ssd.py``): ``ssd.in_proj``, ``ssd.conv`` (conv,
   silu, split, softplus, A), ``ssd.out`` (D skip, gated norm, out
   product), ``ssd.decode`` (a decode step's mixer);
