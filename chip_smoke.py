@@ -151,9 +151,15 @@ failure raises and the script exits non-zero without printing a result:
    (``flash_attention`` 28 per llama prefill, 12 per recurrentgemma, 16
    per olmoe, 32 per llava, 48 per whisper (24 encoder + 24 decoder);
    ``ssd_scan`` 48 per mamba2 prefill, ``rglru_scan`` 26 per
-   recurrentgemma prefill; MLA runs no kernel). Then, not counted:
+   recurrentgemma prefill; MLA runs no kernel), for every prefill: the
+   set-up captures the prefill graph of each of the run's (batch, bucket)
+   (``models/prefill_graph.py``), so the run's prefills are replays (or
+   eager, where the family is refused), and a replay's launches are the
+   ones its graph captured, which the graph's counts add up. Then, not
+   counted:
    prefill logits with the kernels against the plain versions swapped in
-   (where the path has a kernel), one-step decode against a full prefill
+   (where the path has a kernel; the eager body, as a replay would run
+   the kernels it captured), one-step decode against a full prefill
    (the MoE families at capacity factor 8, as the reference's test), and
    each kernel's share of prefill device time (``torch.profiler``);
 17. reduced — the reduced configs of those eight archs (recurrentgemma with
@@ -1014,6 +1020,7 @@ def phase_serve(arch, kernel_mods):
     module}; the counts of the kernels of this path are set to 0 just
     before its counted run and read just after."""
     from repro_torch.models import build_model
+    from repro_torch.models import prefill_graph as pg
     from repro_torch.serving import ServeEngine, pad_cache
     from repro_torch.serving.scheduler import ContinuousBatcher
 
@@ -1032,15 +1039,21 @@ def phase_serve(arch, kernel_mods):
     model.decode_step(pad_cache(model, c, 1, 1, cache_len(warm)),
                       warm["tokens"][:, :1], cache_len(warm))
     del c
+    # the prefill graphs of the counted run's shapes, so that it replays
+    reqs = batcher_requests(cfg.vocab_size, spec["prompts"]) \
+        if spec["prompts"] else []
+    model.prefill(batch)
+    for r in {len(r.tokens): r for r in reqs}.values():
+        model.prefill({"tokens": torch.as_tensor(r.tokens[None]).to(
+            model.device)})
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
     # --- the main-path run: counts from 0 just before, read just after ---
-    reqs = batcher_requests(cfg.vocab_size, spec["prompts"]) \
-        if spec["prompts"] else []
     torch.cuda.reset_peak_memory_stats()
     for mod in kernel_mods.values():
         mod.reset_launches()
+    pg.reset_prefill_graph_stats()
     steps, bat_s = 0, None
     with PrefillTally(model) as tally:
         torch.cuda.synchronize()
@@ -1060,7 +1073,9 @@ def phase_serve(arch, kernel_mods):
             torch.cuda.synchronize()
             bat_s = time.perf_counter() - t2
             del batcher
-    launches = {n: mod.launches for n, mod in kernel_mods.items()}
+    graphs = pg.prefill_graph_stats()
+    launches = {n: mod.launches + graphs["launches"].get(n, 0)   # replays'
+                for n, mod in kernel_mods.items()}
     peak = torch.cuda.max_memory_allocated()
 
     check(tuple(gen.shape) == (SERVE_BATCH, SERVE_NEW), f"generate shape "
@@ -1072,6 +1087,9 @@ def phase_serve(arch, kernel_mods):
               f"request {r.rid}: done={r.done}, {len(r.out)} tokens of "
               f"{r.max_new_tokens}")
     check(tally.calls == 1 + len(reqs), f"{tally.calls} prefill calls")
+    check(graphs["captures"] == 0 and
+          graphs["eager"] + graphs["replays"] == tally.calls,
+          f"{arch}: prefill graph counts {graphs} for {tally.calls} calls")
     for name, per in spec["per_prefill"].items():
         check(launches[name] == per * tally.calls,
               f"{arch}: {name} launches {launches[name]} != {per} x "
@@ -1083,7 +1101,7 @@ def phase_serve(arch, kernel_mods):
     kernel_vs_plain = None
     if spec["per_prefill"]:
         with PlainKernels():
-            logits_p, _ = model.prefill(batch)
+            logits_p, _ = model._prefill_body(batch)
         kernel_vs_plain = rel_err(logits_k, logits_p)
         check(bool(torch.isfinite(logits_p).all()), "bad plain logits")
         del logits_p
@@ -1125,6 +1143,7 @@ def phase_serve(arch, kernel_mods):
                                                    for r in reqs)},
            "prefill_calls": tally.calls, "prefill_tokens": tally.tokens,
            "prefill_seconds": tally.seconds,
+           "prefill_graph": graphs,
            "launches": launches,
            "kernel_share_of_prefill_device_time": shares,
            "prefill_device_ms": prefill_device_ms,

@@ -62,12 +62,10 @@ import torch
 from repro_torch.sharding.partitioning import current_mesh
 from repro_torch.spans import span
 
-_STATS = {"captures": 0, "capture_s": 0.0, "replays": 0, "eager": 0}
-_STATS_LOCK = threading.Lock()
-# One side stream per device for every decode graph: cuBLAS keeps a
-# workspace (32 MiB on the H100) for each stream it has run on, for the
-# life of the process, so a new stream per graph (one per ``generate``)
-# would pile them up.
+# One side stream per device for every decode graph (and every prefill
+# graph, ``prefill_graph``): cuBLAS keeps a workspace (32 MiB on the H100)
+# for each stream it has run on, for the life of the process, so a new
+# stream per graph (one per ``generate``) would pile them up.
 _STREAMS: dict = {}
 
 
@@ -77,24 +75,55 @@ def _side_stream(device) -> torch.cuda.Stream:
     return _STREAMS[device]
 
 
+class Counts:
+    """Counts behind one lock (this module's and ``prefill_graph``'s):
+    numbers, and {key: number} tallies, from the zeros given."""
+
+    def __init__(self, **zero):
+        self._zero = zero
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = _copy(self._zero)
+
+    def add(self, **inc) -> None:
+        """Add each number to its count, each {key: number} to its
+        tally."""
+        with self._lock:
+            for k, v in inc.items():
+                if isinstance(v, dict):
+                    tally = self._counts[k]
+                    for kk, vv in v.items():
+                        tally[kk] = tally.get(kk, 0) + vv
+                else:
+                    self._counts[k] += v
+
+    def read(self) -> dict:
+        with self._lock:
+            return _copy(self._counts)
+
+
+def _copy(counts: dict) -> dict:
+    return {k: dict(v) if isinstance(v, dict) else v
+            for k, v in counts.items()}
+
+
+_COUNTS = Counts(captures=0, capture_s=0.0, replays=0, eager=0)
+count = _COUNTS.add
+
+
 def decode_graph_stats() -> dict:
     """Decode graphs captured (and seconds spent capturing them), replays
     (the capturing call's own included) and decode steps run eagerly (the
     warm-up call of each key, and every call :func:`refusal` turned
     away), since the last reset."""
-    with _STATS_LOCK:
-        return dict(_STATS)
+    return _COUNTS.read()
 
 
 def reset_decode_graph_stats() -> None:
-    with _STATS_LOCK:
-        _STATS.update(captures=0, capture_s=0.0, replays=0, eager=0)
-
-
-def count(**inc) -> None:
-    with _STATS_LOCK:
-        for k, v in inc.items():
-            _STATS[k] += v
+    _COUNTS.reset()
 
 
 def refusal(cache, tokens, pos) -> Optional[str]:

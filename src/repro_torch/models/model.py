@@ -49,7 +49,10 @@ returns them. The reference returns new arrays; in place saves a copy of
 the whole cache per step. On the card the step is one CUDA graph,
 captured at a cache's second step and replayed from its third
 (:mod:`repro_torch.models.decode_graph`); ``_decode_body`` is the eager
-step it captures.
+step it captures. On the card ``prefill`` replays one CUDA graph per
+prompt-length bucket of ``_prefill_body`` over the prompt padded to its
+bucket (:mod:`repro_torch.models.prefill_graph`); every refused call
+runs ``_prefill_body`` eagerly over the prompt as it is.
 
 Serving spans (:mod:`repro_torch.spans`, on only under a profiler):
 ``repro_torch.prefill`` and ``repro_torch.decode_step`` (each method
@@ -57,7 +60,9 @@ whole), ``repro_torch.head`` (final norm and head) and
 ``repro_torch.decode_attention`` (a buffered GQA or MLA decode layer's
 attention, projections to output; MLA's holds ``repro_torch.mla.q``,
 ``.mla.kv`` and ``.mla.absorbed``); ``repro_torch.decode_graph.capture``
-and ``.decode_graph.replay`` inside ``decode_step``.
+and ``.decode_graph.replay`` inside ``decode_step``;
+``repro_torch.prefill_graph.capture`` and ``.prefill_graph.replay``
+inside ``prefill``.
 """
 from __future__ import annotations
 
@@ -69,7 +74,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import blocks, decode_graph, rglru, ssd
+from repro_torch.models import (
+    blocks, decode_graph, prefill_graph, rglru, ssd,
+)
 from repro_torch.models.blocks import (
     _proj_heads, chunked_attention, cross_attention, gqa_attention,
     gqa_template, mla_attention, mla_template, mlp, mlp_template, moe_ffn,
@@ -352,13 +359,19 @@ class Model(nn.Module):
             setattr(self, name, nn.ModuleList(
                 ParamModule(template, dev, self.dtype) for _ in range(n)))
         self._decode_graph = None        # decode_graph.DecodeGraph
+        self._prefill_graphs = None      # prefill_graph.PrefillGraphs
 
     def __getstate__(self):
         # a CUDA graph neither pickles nor copies: a copy starts without one
-        return dict(super().__getstate__(), _decode_graph=None)
+        return dict(super().__getstate__(), _decode_graph=None,
+                    _prefill_graphs=None)
+
+    def _drop_graphs(self):
+        self._decode_graph = None
+        self._prefill_graphs = None
 
     def _apply(self, fn, recurse=True):
-        self._decode_graph = None        # tensors moved or cast: drop it
+        self._drop_graphs()              # tensors moved or cast: drop them
         return super()._apply(fn, recurse)
 
     @property
@@ -439,7 +452,7 @@ class Model(nn.Module):
         """Copy {``/``-joined reference path: tensor} into the parameters
         (cast to their dtype, moved to their device). Every template leaf
         must be present with its shape; nothing else may be."""
-        self._decode_graph = None
+        self._drop_graphs()
         want = dict(flatten(self.template()))
         if set(flat) != set(want):
             raise ValueError(f"parameter paths differ: missing "
@@ -498,7 +511,7 @@ class Model(nn.Module):
         """Draw every parameter on the model's device (the reference's
         initialisers, the port's own random stream: see
         :mod:`repro_torch.sharding.partitioning`), one leaf at a time."""
-        self._decode_graph = None
+        self._drop_graphs()
         want = dict(flatten(self.template()))
         for path, value in iter_init(self.template(), seed, self.dtype,
                                      self.device):
@@ -538,9 +551,10 @@ class Model(nn.Module):
         return h @ self.top["lm_head"]
 
     # ---------------------------------------------------------- trunk passes
-    def _bodies(self, enc_out, plain):
+    def _bodies(self, enc_out, plain, length=None):
         """(layers, body, cache leaf names) in the order the trunk runs
-        them; ``body(p, h)`` returns (h, MoE aux loss, cache entries)."""
+        them; ``body(p, h)`` returns (h, MoE aux loss, cache entries).
+        ``length`` (a padded prefill's) reaches the SSD mixer."""
         cfg = self.cfg
         if cfg.family in ("dense", "vlm", "moe"):
             names = ("ckv",) if cfg.mla is not None else ("k", "v")
@@ -555,7 +569,8 @@ class Model(nn.Module):
             def ssm(p, h):
                 h = hint(h, ("batch", None, None))
                 x = rmsnorm(h, p["ln1"], cfg.norm_eps)
-                y, st = ssd.ssd_forward(p["mixer"], x, cfg, plain=plain)
+                y, st = ssd.ssd_forward(p["mixer"], x, cfg, plain=plain,
+                                        length=length)
                 return h + y, 0.0, st
             return [(self.layers, ssm, ("state", "conv"))]
 
@@ -574,16 +589,17 @@ class Model(nn.Module):
                 (self.tail, tail, _TAIL_CACHE)]
 
     def _trunk(self, h, *, collect_cache=False, enc_out=None, plain=False,
-               remat=False):
+               remat=False, length=None):
         """Full-sequence pass over all layers (the audio decoder attends
         to ``enc_out``); ``plain`` takes every mixer's plain route,
         ``remat`` recomputes each layer (a hybrid period) in the backward
-        pass. Returns (h, MoE aux loss summed over layers, caches): per
-        cache leaf name, the list of per-layer entries (empty unless
-        ``collect_cache``)."""
+        pass, ``length`` marks the positions from it on as padding (the
+        SSD mixer's; :meth:`_prefill_body`). Returns (h, MoE aux loss
+        summed over layers, caches): per cache leaf name, the list of
+        per-layer entries (empty unless ``collect_cache``)."""
         caches: Dict[str, list] = {}
         aux = 0.0
-        for layers, body, names in self._bodies(enc_out, plain):
+        for layers, body, names in self._bodies(enc_out, plain, length):
             for p_l in layers:
                 h, a, entries = _run(body, p_l, h, remat)
                 aux = aux + a
@@ -680,24 +696,53 @@ class Model(nn.Module):
         """batch: {"tokens": (B, S) integer tensor on the model's device},
         plus ``frontend_embeds`` (B, F, D) for the vlm family (prepended
         to the token embeddings) or ``encoder_embeds`` (B, T, D) for the
-        audio family. Returns (last_token_logits (B, V), cache). ``plain``
-        takes every mixer's plain route (the dry-run's trace, whose fake
-        tensors no kernel can take). The span ``repro_torch.prefill``."""
+        audio family. Returns (last_token_logits (B, V), cache), the cache
+        of the S positions (the vlm's frontend positions before them).
+        ``plain`` takes every mixer's plain route (the dry-run's trace,
+        whose fake tensors no kernel can take).
+
+        On the card, the dense, moe and ssm families replay a CUDA graph
+        of :meth:`_prefill_body` over the prompt padded to its bucket,
+        captured once per bucket of S
+        (:mod:`repro_torch.models.prefill_graph`): the real positions'
+        logits and cache as the true-length prefill's up to rounding,
+        returned as fresh tensors. Every call that module refuses
+        (:func:`~repro_torch.models.prefill_graph.refusal`: the CPU and
+        ``plain`` among others) runs :meth:`_prefill_body` as it is. The
+        graphs read the parameters at the addresses they were captured
+        on: ``load_params``, ``init`` and moves or casts of the module drop
+        them. The span ``repro_torch.prefill``."""
         with span("repro_torch.prefill"):
-            cfg = self.cfg
-            tokens = batch["tokens"]
-            h = self._embed(tokens)
-            enc_out = None
-            if cfg.family == "audio":
-                enc_out = self._encode(batch["encoder_embeds"], plain=plain)
-            elif cfg.family == "vlm":
-                h = torch.cat([batch["frontend_embeds"].to(self.dtype), h],
-                              dim=1)
-            h, _, caches = self._trunk(h, collect_cache=True,
-                                       enc_out=enc_out, plain=plain)
-            logits = self._final(h[:, -1:])[:, 0]
-            return logits, self._pack_cache(caches, tokens.shape[0],
-                                            h.shape[1])
+            why = prefill_graph.refusal(self, batch, plain)
+            if why is not None:
+                prefill_graph.count(eager=1, refused={why: 1})
+                return self._prefill_body(batch, plain=plain)
+            return prefill_graph.prefill(self, batch["tokens"])
+
+    def _prefill_body(self, batch, *, plain=False, length=None):
+        """The eager prefill (:meth:`prefill`'s arguments and return,
+        called under its ``no_grad``). With ``length`` (a 0-d long tensor
+        on the device; text families), the tokens from ``length`` on are
+        padding, as the prefill graph captures the body: the SSD mixer's
+        dt is 0 there and its conv tail is read at ``length``, the logits
+        are those at ``length - 1`` (device indices, no host sync), and
+        the cache holds every position,
+        :mod:`repro_torch.models.prefill_graph` cuts it."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        h = self._embed(tokens)
+        enc_out = None
+        if cfg.family == "audio":
+            enc_out = self._encode(batch["encoder_embeds"], plain=plain)
+        elif cfg.family == "vlm":
+            h = torch.cat([batch["frontend_embeds"].to(self.dtype), h],
+                          dim=1)
+        h, _, caches = self._trunk(h, collect_cache=True, enc_out=enc_out,
+                                   plain=plain, length=length)
+        last = h[:, -1:] if length is None else \
+            h.index_select(1, (length - 1).reshape(1))
+        logits = self._final(last)[:, 0]
+        return logits, self._pack_cache(caches, tokens.shape[0], h.shape[1])
 
     def _pack_cache(self, caches, batch: int, seq_len: int):
         """Stack the per-layer entries into the reference's cache leaves

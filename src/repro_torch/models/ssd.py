@@ -90,11 +90,21 @@ def _split_xbc(xbc, d_in, N):
     return xbc[..., :d_in], xbc[..., d_in:d_in + N], xbc[..., d_in + N:]
 
 
-def ssd_forward(p, x, cfg: ModelConfig, *, plain=False):
+def ssd_forward(p, x, cfg: ModelConfig, *, plain=False, length=None):
     """Full-sequence SSD mixer. x: (B,S,D) -> (y, (ssm_state, conv_tail)).
     x, B and C reach the scan as views of the conv output (the kernel
     reads them through strides); ``plain`` takes :func:`ssd_chunked`
-    (module doc)."""
+    (module doc).
+
+    ``length`` (a 0-d long tensor on x's device, or None) marks the
+    positions from ``length`` on as padding, as the prefill graph runs a
+    prompt padded to its bucket (:mod:`repro_torch.models.prefill_graph`):
+    dt is 0 there after the softplus, so each pad step decays the state
+    by exp(0) = 1 and adds nothing, and ``ssm_state`` is the state at
+    ``length``; the conv tail is read at ``length - (cw - 1) ... length -
+    1`` by a device index, its rows before position 0 the conv's zero
+    padding. Causal, the real positions' y never sees a pad. None is the
+    unpadded path, op for op."""
     B, S, D = x.shape
     s = cfg.ssm
     d_in, nh, P, N = ssd_dims(cfg)
@@ -108,6 +118,9 @@ def ssd_forward(p, x, cfg: ModelConfig, *, plain=False):
         xs, Bm, Cm = _split_xbc(xbc, d_in, N)
         xs = xs.unflatten(-1, (nh, P))
         dt = F.softplus(dt.float() + p["dt_bias"])
+        if length is not None:
+            pad = torch.arange(S, device=dt.device)[:, None] >= length
+            dt = dt.masked_fill(pad, 0.0)
         A = -torch.exp(p["A_log"].float())
 
     with region("ssd_scan", lambda: ssd_scan_cost(xs, Bm, s.chunk_size)):
@@ -121,7 +134,12 @@ def ssd_forward(p, x, cfg: ModelConfig, *, plain=False):
         y = _gated_rmsnorm(y, z, p["gate_norm"], cfg.norm_eps)
         y = y @ p["w_out"]
     # the reference recomputes x @ w_xbc here; the pre-conv u is the same
-    conv_tail = u[:, S - (s.conv_width - 1):, :]
+    if length is None:
+        conv_tail = u[:, S - (s.conv_width - 1):, :]
+    else:
+        at = length + torch.arange(1 - s.conv_width, 0, device=u.device)
+        conv_tail = torch.where((at >= 0)[None, :, None],
+                                u.index_select(1, at.clamp(min=0)), 0.0)
     return y, (h_final, conv_tail)
 
 

@@ -24,7 +24,10 @@ Every name starts with ``repro_torch.``; the set is fixed:
   decode layer's attention, projections to output); inside
   ``decode_step`` on the card, ``decode_graph.capture`` and
   ``decode_graph.replay`` (``models/decode_graph.py``: a replay runs none
-  of the step's inner spans);
+  of the step's inner spans); inside ``prefill`` on the card,
+  ``prefill_graph.capture`` and ``prefill_graph.replay``
+  (``models/prefill_graph.py``: a replay runs none of the prefill's inner
+  spans);
 * MoE FFN (``models/blocks.py``): ``moe.router``, ``moe.dispatch``,
   ``moe.experts`` (dispatch buffer and the expert products),
   ``moe.combine``;
