@@ -58,10 +58,8 @@ device window index the body advances itself, and the per-window outputs —
 and the tensors' device decides how it runs, as it does for the kernels:
 
 * on the card the body of a one-shard program is captured once into a
-  ``torch.cuda.CUDAGraph``
-  (after one warm-up run on a side stream, which sets up the cuBLAS and
-  cuSOLVER handles and workspaces, as PyTorch's graph documentation asks)
-  and each window is one replay of that graph; the graph launches the
+  CUDA graph, after one warm-up run (:mod:`repro_torch.graphs`), and
+  each window is one replay of that graph; the graph launches the
   ``loo_trials_step`` kernel at every greedy step. The host syncs once, at
   the end of the scenario. Graphs are cached per block shape, as the
   reference's ``lru_cache``d programs are (LRU-bounded here: a graph holds
@@ -76,8 +74,7 @@ caller whose shapes and device match. Each run therefore holds the
 program's lock from the upload to the read-back, so scenarios of one
 shape run from several threads (the devices executor of the scenario
 module's sweeps) take turns on it, and scenarios of different shapes run
-side by side. Graphs are captured in ``thread_local`` error mode, so
-another thread's allocations do not break a capture.
+side by side.
 
 Nothing in the body syncs the host: no ``.item()``, no Python branch on a
 tensor value, no boolean-mask indexing; windows are selected by
@@ -107,7 +104,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import graphs, resolve_device
 from repro_torch.core import htl
 from repro_torch.core.dispatch import count_dispatch
 from repro_torch.core.energy import (INDEX_BYTES, Ledger, MODEL_BYTES,
@@ -120,7 +117,6 @@ from repro_torch.core.svm import _train_svm, pad_local, sample_cap
 from repro_torch.core.topology import (Node, Topology, fleet_nodes,
                                        get_transport)
 from repro_torch.data.synthetic_covtype import Dataset, NUM_CLASSES
-from repro_torch.kernels import loo_trials as kernel
 from repro_torch.sharding.partitioning import (FLEET_AXIS, dc_shards,
                                                fleet_mesh, fleet_world)
 
@@ -177,13 +173,10 @@ def _window_cm(w, x_test, y_oh, num_classes: int):
 # programs: a window body over static tensors, captured on the card
 # ---------------------------------------------------------------------------
 
-_STATS = {"captures": 0, "capture_s": 0.0, "replays": 0,
-          "loo_trials_launches": 0, "loo_trials_step_launches": 0,
-          "collectives": 0}
-_STATS_LOCK = threading.Lock()
-# One capture at a time in the process: ``torch.cuda.graph`` synchronises
-# the device on entry, which CUDA refuses while another thread captures.
-_CAPTURE_LOCK = threading.Lock()
+_COUNTS = graphs.Counts(captures=0, capture_s=0.0, replays=0,
+                        loo_trials_launches=0, loo_trials_step_launches=0,
+                        collectives=0)
+count = _COUNTS.add
 
 
 def graph_stats() -> dict:
@@ -197,21 +190,11 @@ def graph_stats() -> dict:
     (the CPU, a sharded city) add no replays: the wrappers' own counters
     see their launches. ``collectives`` counts the sharded city's
     ``all_reduce`` and ``broadcast`` calls."""
-    with _STATS_LOCK:
-        return dict(_STATS)
+    return _COUNTS.read()
 
 
 def reset_graph_stats() -> None:
-    with _STATS_LOCK:
-        _STATS.update(captures=0, capture_s=0.0, replays=0,
-                      loo_trials_launches=0, loo_trials_step_launches=0,
-                      collectives=0)
-
-
-def _add_stats(**inc) -> None:
-    with _STATS_LOCK:
-        for k, v in inc.items():
-            _STATS[k] += v
+    _COUNTS.reset()
 
 
 class _Program:
@@ -244,27 +227,18 @@ class _Program:
             reset(self.state)
         for _ in range(windows):
             self.graph.replay()
-        _add_stats(replays=windows,
-                   loo_trials_launches=windows * self.trial_launches,
-                   loo_trials_step_launches=windows * self.step_launches)
+        count(replays=windows,
+              loo_trials_launches=windows * self.trial_launches,
+              loo_trials_step_launches=windows * self.step_launches)
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.body(self.state)
-        current.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with _CAPTURE_LOCK:
-            trials, steps = kernel.launches, kernel.step_launches
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.body(self.state)
-            self.trial_launches = kernel.launches - trials
-            self.step_launches = kernel.step_launches - steps
-        self.graph = graph
-        _add_stats(captures=1, capture_s=time.perf_counter() - t0)
+        graphs.warm_up(lambda: self.body(self.state), self.device)
+        self.graph, _, launches = graphs.capture(
+            lambda: self.body(self.state), self.device)
+        self.trial_launches = launches.get("loo_trials", 0)
+        self.step_launches = launches.get("loo_trials_step", 0)
+        count(captures=1, capture_s=time.perf_counter() - t0)
 
 
 _PROGRAMS: "OrderedDict[tuple, _Program]" = OrderedDict()
@@ -579,7 +553,7 @@ def _sum_over_shards(parts, group, dtype):
     import torch.distributed as dist
     buf = torch.cat([p.reshape(-1).to(dtype) for p in parts])
     dist.all_reduce(buf, group=group)
-    _add_stats(collectives=1)
+    count(collectives=1)
     out, i = [], 0
     for p in parts:
         out.append(buf[i:i + p.numel()].view(p.shape).to(p.dtype))
@@ -886,7 +860,7 @@ def _broadcast_outputs(cms, centers, windows: int, device):
         buf.copy_(torch.from_numpy(np.concatenate(
             [cms.reshape(-1), centers]).astype(np.float64)))
     dist.broadcast(buf, src=0)
-    _add_stats(collectives=1)
+    count(collectives=1)
     out = buf.cpu().numpy()
     return (out[:n].reshape(windows, NUM_CLASSES, NUM_CLASSES)
             .astype(np.float32), out[n:].astype(np.int64))

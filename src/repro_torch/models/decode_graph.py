@@ -17,13 +17,11 @@ once as a ``torch.cuda.CUDAGraph`` and replays it on later calls:
   under ``no_grad``). Every other call (the CPU, the dry-run's DTensor and
   meta traces, a step captured into an outer graph) runs the eager body
   as it is;
-* the first call with a new key runs the body eagerly on the device's
-  side stream, shared by every decode graph (the warm-up, which also sets
-  up cuBLAS's handle and workspace for that stream), the second captures
-  it there and replays once, every later
-  call replays. A capture runs nothing, so a recurrent state (SSD state,
-  conv window, rolled window cache, RG-LRU state) advances exactly once
-  per call;
+* the first call with a new key runs the body eagerly (the warm-up), the
+  second captures it and replays once, every later call replays, both on
+  the device's side stream (:mod:`repro_torch.graphs`). A capture runs
+  nothing, so a recurrent state (SSD state, conv window, rolled window
+  cache, RG-LRU state) advances exactly once per call;
 * ``tokens`` and ``pos`` are copied into the graph's static inputs before
   a replay, and the logits come back as a fresh copy: a caller that keeps
   an earlier step's logits never sees them overwritten. The cache returned
@@ -39,9 +37,7 @@ never replayed after reuse), and the cache and the graph's pool are
 freed together, as when a batcher is deleted or ``generate`` returns.
 The parameters are read at the addresses the graph was captured on: a
 route that swaps them without the calls above (``torch.func.
-functional_call``) must not call ``decode_step`` on the card. Captures
-take the process's one capture lock
-(:data:`repro_torch.core.cityscan._CAPTURE_LOCK`).
+functional_call``) must not call ``decode_step`` on the card.
 
 Spans (:mod:`repro_torch.spans`, inside ``repro_torch.decode_step``):
 ``repro_torch.decode_graph.capture`` and ``repro_torch.decode_graph.replay``.
@@ -52,65 +48,16 @@ eager steps; their kernels still run, under their own names.
 """
 from __future__ import annotations
 
-import threading
 import time
 import weakref
 from typing import Optional
 
 import torch
 
-from repro_torch.sharding.partitioning import current_mesh
+from repro_torch import graphs
 from repro_torch.spans import span
 
-# One side stream per device for every decode graph (and every prefill
-# graph, ``prefill_graph``): cuBLAS keeps a workspace (32 MiB on the H100)
-# for each stream it has run on, for the life of the process, so a new
-# stream per graph (one per ``generate``) would pile them up.
-_STREAMS: dict = {}
-
-
-def _side_stream(device) -> torch.cuda.Stream:
-    if device not in _STREAMS:
-        _STREAMS[device] = torch.cuda.Stream(device)
-    return _STREAMS[device]
-
-
-class Counts:
-    """Counts behind one lock (this module's and ``prefill_graph``'s):
-    numbers, and {key: number} tallies, from the zeros given."""
-
-    def __init__(self, **zero):
-        self._zero = zero
-        self._lock = threading.Lock()
-        self.reset()
-
-    def reset(self) -> None:
-        with self._lock:
-            self._counts = _copy(self._zero)
-
-    def add(self, **inc) -> None:
-        """Add each number to its count, each {key: number} to its
-        tally."""
-        with self._lock:
-            for k, v in inc.items():
-                if isinstance(v, dict):
-                    tally = self._counts[k]
-                    for kk, vv in v.items():
-                        tally[kk] = tally.get(kk, 0) + vv
-                else:
-                    self._counts[k] += v
-
-    def read(self) -> dict:
-        with self._lock:
-            return _copy(self._counts)
-
-
-def _copy(counts: dict) -> dict:
-    return {k: dict(v) if isinstance(v, dict) else v
-            for k, v in counts.items()}
-
-
-_COUNTS = Counts(captures=0, capture_s=0.0, replays=0, eager=0)
+_COUNTS = graphs.Counts(captures=0, capture_s=0.0, replays=0, eager=0)
 count = _COUNTS.add
 
 
@@ -127,27 +74,10 @@ def reset_decode_graph_stats() -> None:
 
 
 def refusal(cache, tokens, pos) -> Optional[str]:
-    """Why a decode call takes the eager body (``"dtensor"``, ``"fake"``,
-    ``"meta"``, ``"mesh"``, ``"device"``, ``"capturing"``), or None where
-    it may run as a graph."""
-    from torch._subclasses.fake_tensor import FakeTensor
-    from torch.distributed.tensor import DTensor
-
-    leaves = list(cache.values())
-    for t in leaves + [x for x in (tokens, pos) if torch.is_tensor(x)]:
-        if isinstance(t, DTensor):
-            return "dtensor"
-        if isinstance(t, FakeTensor):
-            return "fake"
-        if t.is_meta:
-            return "meta"
-    if current_mesh() is not None:
-        return "mesh"
-    if not leaves or any(t.device.type != "cuda" for t in leaves):
-        return "device"
-    if torch.cuda.is_current_stream_capturing():
-        return "capturing"
-    return None
+    """Why a decode call takes the eager body (:func:`repro_torch.graphs.
+    refusal` over the cache leaves, ``tokens`` and ``pos``), or None
+    where it may run as a graph."""
+    return graphs.refusal(cache.values(), (tokens, pos))
 
 
 def _signature(x):
@@ -165,9 +95,9 @@ def graph_key(cache, tokens, pos, cfg) -> tuple:
 
 
 class DecodeGraph:
-    """One key's graph: warmed up, then captured, then replayed (module
-    doc). ``body(cache, tokens, pos)`` is the eager decode step; it is
-    passed to each call, not kept. ``owner`` (held weakly) is the model
+    """One key's graph: captured after the key's warm-up, then replayed
+    (module doc). ``body(cache, tokens, pos)`` is the eager decode step;
+    it is passed to each call, not kept. ``owner`` (held weakly) is the model
     whose ``_decode_graph`` this is, dropped there when a leaf dies."""
 
     def __init__(self, key: tuple, cache, owner):
@@ -181,41 +111,21 @@ class DecodeGraph:
         # weak, so the cache dies with its holder; the refs die with the
         # graph, so a dropped graph's callbacks never fire
         self.leaves = tuple(weakref.ref(t, drop) for t in cache.values())
-        self.stream: Optional[torch.cuda.Stream] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tokens = self.pos = self.logits = None
-
-    def warm_up(self, body, cache, tokens, pos):
-        """The key's first call: the body run eagerly on the side stream
-        that will capture it."""
-        self.stream = _side_stream(next(iter(cache.values())).device)
-        current = torch.cuda.current_stream(self.stream.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            logits, cache = body(cache, tokens, pos)
-        current.wait_stream(self.stream)
-        logits.record_stream(current)
-        count(eager=1)
-        return logits, cache
 
     def capture(self, body, cache, tokens, pos) -> None:
         """Capture the body over static ``tokens`` and ``pos`` on the side
         stream; nothing runs."""
-        from repro_torch.core.cityscan import _CAPTURE_LOCK
-
         t0 = time.perf_counter()
-        with span("repro_torch.decode_graph.capture"):
-            dev = self.stream.device
-            shape, dtype = _signature(pos)
-            self.tokens = torch.empty(tokens.shape, dtype=tokens.dtype,
-                                      device=dev)
-            self.pos = torch.empty(shape, dtype=dtype, device=dev)
-            graph = torch.cuda.CUDAGraph()
-            with _CAPTURE_LOCK, torch.cuda.graph(
-                    graph, stream=self.stream,
-                    capture_error_mode="thread_local"):
-                self.logits, _ = body(cache, self.tokens, self.pos)
-            self.graph = graph
+        dev = next(iter(cache.values())).device
+        shape, dtype = _signature(pos)
+        self.tokens = torch.empty(tokens.shape, dtype=tokens.dtype,
+                                  device=dev)
+        self.pos = torch.empty(shape, dtype=dtype, device=dev)
+        self.graph, (self.logits, _), _ = graphs.capture(
+            lambda: body(cache, self.tokens, self.pos), dev,
+            span_name="repro_torch.decode_graph.capture")
         count(captures=1, capture_s=time.perf_counter() - t0)
 
     def replay(self, tokens, pos):

@@ -72,7 +72,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import graphs, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (
     blocks, decode_graph, prefill_graph, rglru, ssd,
@@ -814,6 +814,12 @@ class Model(nn.Module):
             return {"k": k, "v": v, "xk": xk, "xv": xv}
         return {"k": k, "v": v}
 
+    def cache_len_axes(self, batch: int, seq_len: int) -> dict:
+        """{cache leaf: its ``cache_len`` axis, or None}."""
+        return {name: spec.axes.index("cache_len")
+                if "cache_len" in spec.axes else None
+                for name, spec in self.cache_template(batch, seq_len).items()}
+
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos):
         """One serve step: tokens (B,1) integers, pos an int, a 0-d tensor
@@ -841,9 +847,12 @@ class Model(nn.Module):
             g = self._decode_graph
             if g is None or g.key != key:
                 self._decode_graph = None    # the old graph's pool goes first
-                self._decode_graph = g = decode_graph.DecodeGraph(key, cache,
-                                                                  self)
-                return g.warm_up(self._decode_body, cache, tokens, pos)
+                self._decode_graph = decode_graph.DecodeGraph(key, cache,
+                                                              self)
+                decode_graph.count(eager=1)
+                return graphs.warm_up(
+                    lambda: self._decode_body(cache, tokens, pos),
+                    self.device)
             if g.graph is None:
                 g.capture(self._decode_body, cache, tokens, pos)
             return g.replay(tokens, pos), cache

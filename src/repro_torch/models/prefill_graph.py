@@ -24,18 +24,17 @@ length), captured once per bucket:
   window (the cache keeps the last ``w`` positions), attention that is
   not causal, an MoE whose capacity can drop a token
   (``capacity_factor * top_k < num_experts``: the padded token count
-  would change which real tokens are kept); ``plain``; and whatever the
-  decode graph refuses (:func:`repro_torch.models.decode_graph.refusal`:
-  the CPU, DTensor, fake or meta inputs, an ambient mesh, a running
-  capture). A refused call runs the eager body (``Model._prefill_body``)
-  as it is, its reason counted;
-* a model's first accepted call runs the padded body eagerly on the
-  device's side stream, the one every decode and prefill graph of the
-  device is captured on (``decode_graph``'s: cuBLAS keeps a workspace a
-  stream), which builds the kernels and sets up the stream's handles.
-  From then on the first call in a bucket captures its graph there and
-  replays it, and every later call replays. The key is (batch, ``Lb``,
-  device, config);
+  would change which real tokens are kept); ``plain``; and what
+  :func:`repro_torch.graphs.refusal` refuses for the model's embedding
+  and the tokens (the CPU, DTensor, fake or meta inputs, an ambient mesh,
+  a running capture). A refused call runs the eager body
+  (``Model._prefill_body``) as it is, its reason counted;
+* a model's first accepted call runs the padded body eagerly (the
+  warm-up), which builds the kernels. From then on the first call in a
+  bucket captures its graph and replays it, and every later call
+  replays; warm-up and captures run on the device's side stream
+  (:mod:`repro_torch.graphs`). The key is (batch, ``Lb``, device,
+  config);
 * before a replay the tokens (padded with ``PAD_ID``) and the length are
   copied into the graph's static inputs; after it the logits and the
   cache leaves, those with a ``cache_len`` axis cut to the prompt's
@@ -59,8 +58,7 @@ each replay's outputs are copied out before any other graph runs, and a
 graph's static outputs stay allocated until it is dropped.
 ``Model.load_params``, ``init`` and anything that moves or casts the
 module drop them all, as they drop the decode graph: the graphs read the
-parameters at the addresses they were captured on. Captures take the process's one capture lock
-(:data:`repro_torch.core.cityscan._CAPTURE_LOCK`).
+parameters at the addresses they were captured on.
 
 Spans (:mod:`repro_torch.spans`, inside ``repro_torch.prefill``):
 ``repro_torch.prefill_graph.capture`` and
@@ -81,7 +79,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import decode_graph
+from repro_torch import graphs
 from repro_torch.spans import span
 
 PAD_ID = 0
@@ -92,9 +90,9 @@ PER_OCTAVE = 8
 # dropped, at its next capture (module doc).
 MEMORY_SHARE = 1 / 4
 
-_COUNTS = decode_graph.Counts(captures=0, capture_s=0.0, replays=0,
-                              eager=0, dropped=0, refused={}, launches={},
-                              tokens=0, pad_tokens=0)
+_COUNTS = graphs.Counts(captures=0, capture_s=0.0, replays=0, eager=0,
+                        dropped=0, refused={}, launches={}, tokens=0,
+                        pad_tokens=0)
 count = _COUNTS.add
 
 
@@ -128,9 +126,8 @@ def reset_prefill_graph_stats() -> None:
 def refusal(model, batch, plain) -> Optional[str]:
     """Why a prefill takes the eager body (``"plain"``, ``"family"``,
     ``"window"``, ``"noncausal"``, ``"moe_capacity"``, or one of
-    :func:`repro_torch.models.decode_graph.refusal`'s reasons for the
-    tokens and the model's embedding), or None where it may run as a
-    graph."""
+    :func:`repro_torch.graphs.refusal`'s reasons for the model's
+    embedding and the tokens), or None where it may run as a graph."""
     cfg = model.cfg
     if plain:
         return "plain"
@@ -143,8 +140,7 @@ def refusal(model, batch, plain) -> Optional[str]:
     m = cfg.moe
     if m is not None and m.capacity_factor * m.top_k < m.num_experts:
         return "moe_capacity"
-    return decode_graph.refusal({"embed": model.top["embed"]},
-                                batch["tokens"], None)
+    return graphs.refusal([model.top["embed"]], (batch["tokens"],))
 
 
 class PrefillGraphs:
@@ -181,13 +177,6 @@ def _padded(tokens, Lb: int, device):
     return out
 
 
-def _cache_len_axes(model, batch: int, Lb: int) -> dict:
-    """{cache leaf: its ``cache_len`` axis, or None}."""
-    return {name: spec.axes.index("cache_len") if "cache_len" in spec.axes
-            else None for name, spec in model.cache_template(batch,
-                                                             Lb).items()}
-
-
 def _outputs(logits, cache, axes, length: int):
     """Fresh copies of the padded body's logits and cache, every
     ``cache_len`` axis cut to ``length``."""
@@ -208,7 +197,7 @@ def eager(model, tokens):
     length = torch.full((), L, dtype=torch.long, device=dev)
     logits, cache = model._prefill_body({"tokens": _padded(tokens, Lb, dev)},
                                         length=length)
-    return _outputs(logits, cache, _cache_len_axes(model, B, Lb), L)
+    return _outputs(logits, cache, model.cache_len_axes(B, Lb), L)
 
 
 def prefill(model, tokens):
@@ -222,8 +211,9 @@ def prefill(model, tokens):
         model._prefill_graphs = state = PrefillGraphs()
     count(tokens=B * L, pad_tokens=B * (Lb - L))
     if not state.warm:
-        out = _warm_up(model, tokens)
+        out = graphs.warm_up(lambda: eager(model, tokens), model.device)
         state.warm = True
+        count(eager=1)
         return out
     key = (B, Lb, model.device, model.cfg)
     g = state.graphs.get(key)
@@ -240,20 +230,6 @@ def prefill(model, tokens):
     return g.replay(tokens)
 
 
-def _warm_up(model, tokens):
-    """:func:`eager` on the device's side stream (module doc)."""
-    stream = decode_graph._side_stream(model.device)
-    current = torch.cuda.current_stream(model.device)
-    stream.wait_stream(current)
-    with torch.cuda.stream(stream):
-        logits, cache = eager(model, tokens)
-    current.wait_stream(stream)
-    for t in (logits, *cache.values()):
-        t.record_stream(current)
-    count(eager=1)
-    return logits, cache
-
-
 class PrefillGraph:
     """One bucket's graph over its static inputs (module doc)."""
 
@@ -262,31 +238,19 @@ class PrefillGraph:
         self.tokens = torch.full((batch, Lb), PAD_ID, dtype=torch.long,
                                  device=dev)
         self.length = torch.ones((), dtype=torch.long, device=dev)
-        self.axes = _cache_len_axes(model, batch, Lb)
+        self.axes = model.cache_len_axes(batch, Lb)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.logits = self.cache = None
         self.launches: dict = {}
 
     def capture(self, model, pool) -> None:
-        """Capture the padded body over the static inputs on the side
-        stream, in the model's pool, noting the kernel launches it holds;
-        nothing runs."""
-        from repro_torch.core.cityscan import _CAPTURE_LOCK
-
+        """Capture the padded body over the static inputs, in the model's
+        pool, noting the kernel launches it holds; nothing runs."""
         t0 = time.perf_counter()
-        with span("repro_torch.prefill_graph.capture"):
-            stream = decode_graph._side_stream(model.device)
-            stream.wait_stream(torch.cuda.current_stream(model.device))
-            graph = torch.cuda.CUDAGraph()
-            before = _kernel_launches()
-            with _CAPTURE_LOCK, torch.cuda.graph(
-                    graph, pool=pool, stream=stream,
-                    capture_error_mode="thread_local"):
-                self.logits, self.cache = model._prefill_body(
-                    {"tokens": self.tokens}, length=self.length)
-            self.graph = graph
-        self.launches = {k: n - before[k] for k, n in
-                         _kernel_launches().items() if n > before[k]}
+        self.graph, (self.logits, self.cache), self.launches = \
+            graphs.capture(lambda: model._prefill_body(
+                {"tokens": self.tokens}, length=self.length), model.device,
+                pool=pool, span_name="repro_torch.prefill_graph.capture")
         count(captures=1, capture_s=time.perf_counter() - t0)
 
     def replay(self, tokens):
@@ -302,11 +266,3 @@ class PrefillGraph:
         count(replays=1, launches=self.launches)
         return out
 
-
-def _kernel_launches() -> dict:
-    """{kernel: its wrapper's launch counter} of the kernels a prefill
-    graph can hold (the hybrid family's ``rglru_scan`` is refused)."""
-    from repro_torch.kernels import flash_attention, ssd_scan
-
-    return {"flash_attention": flash_attention.launches,
-            "ssd_scan": ssd_scan.launches}

@@ -19,13 +19,6 @@ from repro_torch.models.model import Model
 from repro_torch.sharding.partitioning import flatten, torch_dtype
 
 
-def _cache_len_axes(model: Model, batch: int, seq_len: int) -> dict:
-    """Map cache leaf path -> axis index of 'cache_len' (or None)."""
-    return {path: spec.axes.index("cache_len") if "cache_len" in spec.axes
-            else None
-            for path, spec in flatten(model.cache_template(batch, seq_len))}
-
-
 def pad_cache(model: Model, cache, n_extra: int, batch: int, seq_len: int):
     """Grow every cache_len axis by ``n_extra`` zero slots (append budget).
 
@@ -37,7 +30,7 @@ def pad_cache(model: Model, cache, n_extra: int, batch: int, seq_len: int):
     never padded and rolls from the first decode step (ROADMAP Queue 3).
     """
     cfg = model.cfg
-    axes = _cache_len_axes(model, batch, seq_len)
+    axes = model.cache_len_axes(batch, seq_len)
     window = cfg.sliding_window or (cfg.rglru.window if cfg.rglru else 0)
     out = {}
     for key, leaf in cache.items():

@@ -1,8 +1,9 @@
 """The decode graph's CPU side (``repro_torch/models/decode_graph.py``):
 on the CPU ``Model.decode_step`` never captures and runs its eager body
 bit for bit; a graph's key changes with the cache's buffers, ``pos``'s
-rank and the batch, and with nothing else; DTensor, meta and fake inputs,
-an ambient mesh and the CPU are refused a graph; anything that rebinds
+rank and the batch, and with nothing else; a meta model decodes eagerly
+(the refusals of DTensor, meta and fake inputs, an ambient mesh and the
+CPU are ``tests/test_torch_graphs.py``'s); anything that rebinds
 the model's tensors drops its graph, and so does the death of a cache
 leaf it was captured on. The card side (replays
 bitwise equal to the eager step for every family, the batcher with the
@@ -19,7 +20,6 @@ from repro_torch.configs import get_config
 from repro_torch.models import build_model
 from repro_torch.models import decode_graph as dg
 from repro_torch.serving import pad_cache
-from repro_torch.sharding.partitioning import use_compute_mesh
 
 torch.set_num_threads(1)
 
@@ -91,35 +91,6 @@ def test_graph_key_follows_buffers_pos_rank_and_batch():
                         p=torch.full((B + 1,), S))
     assert key() != dg.graph_key(cache, tok[:, None], torch.full((B,), S),
                                  dataclasses.replace(cfg, norm_eps=1e-6))
-
-
-def test_refusals_on_the_cpu(tmp_path):
-    """The CPU, DTensor, meta and fake leaves and an ambient mesh each
-    take the eager body, each for its own reason."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
-    from torch.distributed.tensor import DTensor, Replicate
-
-    tok, pos = torch.zeros((B, 1), dtype=torch.long), torch.full((B,), S)
-    plain = {"k": torch.zeros(2, B, 16, 2, 8)}
-    with torch.no_grad():
-        assert dg.refusal(plain, tok, pos) == "device"
-        assert dg.refusal({"k": plain["k"].to("meta")}, tok, pos) == "meta"
-        assert dg.refusal(plain, tok, pos.to("meta")) == "meta"
-        with FakeTensorMode() as mode:
-            fake = mode.from_tensor(plain["k"])
-        assert dg.refusal({"k": fake}, tok, pos) == "fake"
-        with use_compute_mesh(object()):
-            assert dg.refusal(plain, tok, pos) == "mesh"
-        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/s",
-                                world_size=1, rank=0)
-        try:
-            mesh = DeviceMesh("cpu", [0])
-            dt = DTensor.from_local(plain["k"], mesh, [Replicate()])
-            assert dg.refusal({"k": dt}, tok, pos) == "dtensor"
-        finally:
-            dist.destroy_process_group()
 
 
 def test_meta_model_decodes_eagerly():

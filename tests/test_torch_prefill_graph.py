@@ -4,9 +4,11 @@ the padded body (``Model._prefill_body`` given a length, through
 true-length eager prefill on tiny GQA, MoE (capacity factor 8), MLA and
 SSM models, at lengths 1-3, on each side of a bucket's edge and across
 the SSD chunks; ``ssd_forward`` without a length as before; the bucket
-rule; every refusal, each running the eager body bit for bit; what drops
-the graphs. The card side (replays bitwise the eager padded body, the
-batcher with the graphs against the batcher without) is in
+rule; every refusal a CPU run shows, each running the eager body bit for
+bit (those of tensors and a mesh, and the stats' counters, are
+``tests/test_torch_graphs.py``'s); what drops the graphs. The card side
+(replays bitwise the eager padded body, the batcher with the graphs
+against the batcher without) is in
 ``tests/test_torch_prefill_graph_cuda.py``.
 """
 import copy
@@ -21,7 +23,6 @@ from repro_torch.data.pipeline import make_lm_batch
 from repro_torch.models import build_model
 from repro_torch.models import prefill_graph as pg
 from repro_torch.models import ssd
-from repro_torch.sharding.partitioning import use_compute_mesh
 
 torch.set_num_threads(1)
 
@@ -177,34 +178,6 @@ def test_refused_prefill_runs_the_eager_body(reason, arch, changes, kw):
     assert model._prefill_graphs is None
 
 
-def test_refusals_of_tensors_and_mesh(tmp_path):
-    """Meta, fake and DTensor inputs, a meta model and an ambient mesh are
-    refused as the decode graph refuses them."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
-    from torch.distributed.tensor import DTensor, Replicate
-
-    cfg = _cfg("llama3.2-3b")
-    model = _model(cfg)
-    tok = torch.zeros((1, 8), dtype=torch.long)
-    assert pg.refusal(model, {"tokens": tok.to("meta")}, False) == "meta"
-    with FakeTensorMode() as mode:
-        fake = mode.from_tensor(tok)
-    assert pg.refusal(model, {"tokens": fake}, False) == "fake"
-    with use_compute_mesh(object()):
-        assert pg.refusal(model, {"tokens": tok}, False) == "mesh"
-    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/s",
-                            world_size=1, rank=0)
-    try:
-        dt = DTensor.from_local(tok, DeviceMesh("cpu", [0]), [Replicate()])
-        assert pg.refusal(model, {"tokens": dt}, False) == "dtensor"
-    finally:
-        dist.destroy_process_group()
-    meta = build_model(cfg, device="meta")
-    assert pg.refusal(meta, {"tokens": tok}, False) == "meta"
-
-
 @pytest.mark.parametrize("rebind", ["load_params", "init", "to", "float",
                                     "deepcopy"])
 def test_rebinding_the_tensors_drops_the_prefill_graphs(rebind):
@@ -226,29 +199,3 @@ def test_rebinding_the_tensors_drops_the_prefill_graphs(rebind):
      "to": lambda: model.to("cpu"),
      "float": lambda: model.float()}[rebind]()
     assert model._prefill_graphs is None and model._decode_graph is None
-
-
-def test_stats_count_and_reset():
-    """Counts add up by key, by refusal reason and by kernel; a reset
-    zeroes them and a snapshot is a copy."""
-    pg.reset_prefill_graph_stats()
-    pg.count(replays=2, tokens=10, pad_tokens=3,
-             launches={"ssd_scan": 96})
-    pg.count(eager=1, refused={"plain": 1})
-    pg.count(eager=1, refused={"plain": 1}, replays=1,
-             launches={"ssd_scan": 48, "flash_attention": 2})
-    snap = pg.prefill_graph_stats()
-    assert snap["replays"] == 3 and snap["eager"] == 2
-    assert snap["refused"] == {"plain": 2}
-    assert snap["launches"] == {"ssd_scan": 144, "flash_attention": 2}
-    assert (snap["tokens"], snap["pad_tokens"]) == (10, 3)
-    snap["refused"]["plain"] = 0
-    snap["launches"]["ssd_scan"] = 0
-    assert pg.prefill_graph_stats()["refused"] == {"plain": 2}
-    assert pg.prefill_graph_stats()["launches"]["ssd_scan"] == 144
-    pg.reset_prefill_graph_stats()
-    assert pg.prefill_graph_stats() == {
-        "captures": 0, "capture_s": 0.0, "replays": 0, "eager": 0,
-        "dropped": 0, "refused": {}, "launches": {}, "tokens": 0,
-        "pad_tokens": 0}
-

@@ -69,6 +69,7 @@ def test_prefill_graph_replays_are_bitwise_the_eager_padded_body(cuda, case,
     replays in other buckets; the stats count one capture per bucket,
     every real and pad token, and the kernel launches of the replays as
     the eager padded body makes them."""
+    from repro_torch import graphs
     from repro_torch.models import build_model
     from repro_torch.models import prefill_graph as pg
 
@@ -80,9 +81,9 @@ def test_prefill_graph_replays_are_bitwise_the_eager_padded_body(cuda, case,
     for i, (B, L) in enumerate(CALLS):
         tokens = _tokens(cfg.vocab_size, B, L, seed=i)
         logits, cache = model.prefill({"tokens": tokens})
-        before = pg._kernel_launches()
+        before = graphs.kernel_launches()
         want_logits, want = pg.eager(model, tokens)
-        for k, n in pg._kernel_launches().items():
+        for k, n in graphs.kernel_launches().items():
             if i and n > before[k]:
                 launches[k] = launches.get(k, 0) + n - before[k]
         assert torch.equal(logits, want_logits), (i, L)
