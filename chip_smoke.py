@@ -8,16 +8,18 @@ Phases, in order, each printing one JSON line with its seconds; any
 failure raises and the script exits non-zero without printing a result:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build — compile all four CUDA kernels (``loo_trials``,
-   ``flash_attention``, ``ssd_scan``, ``rglru_scan``) from
+2. build — compile all five CUDA kernels (``loo_trials``,
+   ``flash_attention``, ``ssd_scan``, ``rglru_scan``,
+   ``decode_attention``) from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
    ``nvcc`` per source, all started together; then a ``{"ptxas": ...}``
    line with the registers and spill bytes of every kernel function, and a
    check that no instantiation of the bf16 tensor-core flash kernel (head
    dims 32, 64, 128, 256), of the three tensor-core ``ssd_scan`` kernels
    (N 64, 128), of the ``loo_trials`` kernel (D buckets 16-128, plain
-   and fused) or of the ``rglru_scan`` kernel (channel groups 32, 64; TMA
-   and cp.async routes) spills;
+   and fused), of the ``rglru_scan`` kernel (channel groups 32, 64; TMA
+   and cp.async routes) or of the bf16 ``decode_attention`` kernel (head
+   dims 32, 64, 128, query heads per KV head up to 1, 2, 4, 8) spills;
 3. kernel — ``loo_trials`` against its plain PyTorch version on the card at
    every main-path shape (a grid of L, R and D, and the shapes beyond it
    that phases 7-8d launch, the city's refine among them; rtol 1e-5, atol
@@ -40,6 +42,18 @@ failure raises and the script exits non-zero without printing a result:
    float32, 2e-2 in bfloat16: the JAX sweep's bounds), two launches
    bitwise equal; kernel, plain, ``scaled_dot_product_attention``
    (library, never on the path) and bound times;
+4b. decode_attention — the split-K decode kernel against its plain
+   version at olmoe-1b-7b chat's buffer (64 x 1,537, 16 heads of 128),
+   long-prompt's (16 x 3,043), llama3.2-3b's GQA (G 3), whisper-medium's
+   d 64 and reduced float32 shapes, each slot at a random depth with 0
+   and S - 1 among them, elementwise within ``DECODE_ATTN_TOL`` (one bf16
+   rounding of the output: 2^-7 of |plain| in bfloat16); the same limit
+   must refuse the plain version with one split of keys left out (a
+   planted fault, printed as ``fault_tol_use``); two launches bitwise
+   equal; then kernel, plain, SDPA (library, over the whole buffer with
+   the depth mask, never on the path) and bound (the attended K/V rows
+   read once) times at olmoe chat's and long-prompt's mix depths
+   (``perfbench/mixes/<mix>.json``) and at full buffers;
 5. ssd — ``ssd_scan`` against its plain version (``ssd_chunked``) at
    mamba2-1.3b's prefill shapes (H 64, P 64, N 128, chunk 256; B 4 x
    S 2048 in bfloat16 and float32, B 1 at each batcher prompt length, which
@@ -151,7 +165,11 @@ failure raises and the script exits non-zero without printing a result:
    (``flash_attention`` 28 per llama prefill, 12 per recurrentgemma, 16
    per olmoe, 32 per llava, 48 per whisper (24 encoder + 24 decoder);
    ``ssd_scan`` 48 per mamba2 prefill, ``rglru_scan`` 26 per
-   recurrentgemma prefill; MLA runs no kernel), for every prefill: the
+   recurrentgemma prefill; MLA runs no kernel), for every prefill, and
+   ``decode_attention``'s, one a layer for every decode step of the run
+   where the decoder attends through a K/V buffer (llama, olmoe, llava,
+   whisper; none for MLA, SSM and the hybrid's window cache), the
+   replays' launches read from ``decode_graph_stats()``: the
    set-up captures the prefill graph of each of the run's (batch, bucket)
    (``models/prefill_graph.py``), so the run's prefills are replays (or
    eager, where the family is refused), and a replay's launches are the
@@ -207,9 +225,10 @@ failure raises and the script exits non-zero without printing a result:
    plain route: equal FLOPs.
 
 Then the whole script's seconds, the ``{"kernels": [...]}`` line (the
-four ported kernels, and the fused step as a fifth line of the
-``loo_trials`` source; ``launches`` is phase 8's count for
-``loo_trials`` and the serve phases' for the others; the ``loo_trials``
+four ported kernels, the fused step as a fifth line of the
+``loo_trials`` source, and ``decode_attention``; ``launches`` is phase
+8's count for ``loo_trials``, the serve phases' for the others; the
+``loo_trials``
 lines add ``launches_by_path`` for phases 8, 8c, 8d, each Pareto
 search of 8f and each world of 8g (its ranks' launches summed), the flash
 line one entry per served arch)
@@ -236,8 +255,8 @@ import torch  # noqa: E402
 # The kernels' work counts and their bound on the H100's peaks (the
 # kernel rows; the same counts are the roofline phase's mixer regions).
 from repro_torch.roofline.costs import (  # noqa: E402,F401
-    bound, flash_cost, flash_pairs, kernel_cost, rglru_cost, ssd_cost,
-    step_cost,
+    bound, decode_attention_cost, flash_cost, flash_pairs, kernel_cost,
+    rglru_cost, ssd_cost, step_cost,
 )
 
 KERNEL_RTOL = 1e-5
@@ -410,6 +429,32 @@ FLASH_EXTRA = [
     (2, 24, 8, 64, 1024, 128, True, 0, 960, "float32"),       # q_offset
     (4, 24, 8, 1, 2049, 128, True, 0, 2048, "bfloat16"),      # decode-like
 ]
+# decode_attention (B, S, H, KV, d, dtype): olmoe-1b-7b chat's buffer (64
+# slots x 1,537 positions) and long-prompt's (16 x 3,043), llama3.2-3b's
+# GQA (G 3) at its batcher's max_len, whisper-medium's decoder (d 64), and
+# reduced float32 shapes (G 2 and 8). Each slot's depth is drawn at
+# random, 0 and S - 1 among them.
+DECODE_ATTN_SHAPES = [(64, 1537, 16, 16, 128, "bfloat16"),
+                      (16, 3043, 16, 16, 128, "bfloat16"),
+                      (4, 2112, 24, 8, 128, "bfloat16"),
+                      (4, 256, 16, 16, 64, "bfloat16"),
+                      (2, 40, 4, 2, 32, "float32"),
+                      (3, 300, 16, 2, 64, "float32")]
+# (rtol, atol) of |kernel - plain| <= atol + rtol * |plain|, elementwise.
+# Both round the same float32 attention to the output type once, so in
+# bfloat16 they differ by at most one bf16 step (2^-7 of the value) plus
+# float32 summation order; in float32 by summation order alone (flash's
+# 2e-5).
+DECODE_ATTN_TOL = {"float32": (0.0, 2e-5), "bfloat16": (2 ** -7, 1e-5)}
+# The kernel's keys per block (``decode_attention_split()``): the planted
+# fault leaves the first such split of keys out.
+DECODE_ATTN_SPLIT = 256
+# The timed rows: (shape index, depths) with the depths of the closed loop
+# under a benchmark mix (``perfbench/mixes/<mix>.json``: a slot's prompt
+# plus a uniform share of its budget, slots drawn in proportion to their
+# budget: mean 482 in chat) or a full buffer.
+DECODE_ATTN_TIMED = [(0, "chat"), (0, "full"), (1, "long-prompt"),
+                     (1, "full"), (2, "full")]
 
 # ssd_scan: the JAX sweep's bounds (tests/test_kernels.py:75), relative to
 # the largest |value| of y and of the final state.
@@ -464,12 +509,18 @@ DEVICE_KERNELS = {"ssd_scan": ("ssd_scan_kernel", "ssd_chunk_state_kernel",
 # may spill.
 LOO_KERNELS = tuple(f"loo_trials_kernel<{d},{s}>" for d in (16, 32, 64, 128)
                     for s in (0, 1))
+# The decode_attention kernel's bf16 instantiations (head dim, query heads
+# per KV head up to 1, 2, 4, 8); none may spill.
+DECODE_ATTN_KERNELS = tuple(f"decode_attention_kernel<bf16,{d},{g}>"
+                            for d in (32, 64, 128) for g in (1, 2, 4, 8))
 # The TPU kernel (Pallas body, file:line) each CUDA kernel replaces.
 REPLACES = {"loo_trials": "src/repro/kernels/loo_trials.py:51",
             "loo_trials_step": "src/repro/kernels/loo_trials.py:51",
             "flash_attention": "src/repro/kernels/flash_attention.py:25",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:22",
-            "rglru_scan": "src/repro/kernels/rglru_scan.py:21"}
+            "rglru_scan": "src/repro/kernels/rglru_scan.py:21",
+            "decode_attention": "none: the JAX package decodes through "
+                                "einsums (src/repro/models/model.py)"}
 
 
 # The training phases. ``train``: llama3.2-3b at full width and depth in
@@ -743,6 +794,147 @@ def phase_flash(fa):
     return rows, max(worst.values())
 
 
+def decode_attention_inputs(shape, seed, device, depths=None):
+    """q (B,1,H,d), ck/cv (B,S,KV,d) standard normal in the shape's dtype
+    and a (B,) position tensor: ``depths``, or random ones with 0 and
+    S - 1 among them."""
+    B, S, H, KV, d, dtype = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, ck, cv = (torch.randn(s, generator=g, device=device).to(dt)
+                 for s in ((B, 1, H, d), (B, S, KV, d), (B, S, KV, d)))
+    if depths is None:
+        depths = np.random.default_rng(seed).integers(0, S, B)
+        depths[0], depths[-1] = 0, S - 1
+    return q, ck, cv, torch.as_tensor(np.asarray(depths), dtype=torch.long,
+                                      device=device)
+
+
+def decode_attention_tol_use(out, ref, dtype):
+    """max over elements of |out - ref| / (atol + rtol |ref|) under
+    ``DECODE_ATTN_TOL[dtype]``: at most 1 within the limit."""
+    rtol, atol = DECODE_ATTN_TOL[dtype]
+    ref = ref.float()
+    return float(((out.float() - ref).abs() / (atol + rtol * ref.abs()))
+                 .max())
+
+
+def split_left_out(q, ck, cv, pos, split=DECODE_ATTN_SPLIT):
+    """The plain version with a planted fault: every slot deeper than one
+    split attends without its first ``split`` keys, as a kernel that
+    dropped a split's partials would."""
+    B, _, H, d = q.shape
+    S, KV = ck.shape[1], ck.shape[2]
+    qg = q.reshape(B, KV, H // KV, d).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, ck.float()) / d ** 0.5
+    p = pos.reshape(-1, 1, 1, 1)
+    j = torch.arange(S, device=q.device)
+    keep = (j <= p) & ((j >= split) | (p < split))
+    s = s.masked_fill(~keep, float("-inf"))
+    o = torch.einsum("bkgt,btkd->bkgd", torch.softmax(s, -1), cv.float())
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def mix_depths(B, S, mix, seed):
+    """(B,) slot depths of a closed loop under the benchmark mix ``mix``
+    (``perfbench/mixes/<mix>.json``, log-uniform prompts and outputs): a
+    prompt plus a uniform share of an output budget, the budget drawn in
+    proportion to its length (a slot holds a request for as many steps as
+    its budget), at most S - 1."""
+    with open(os.path.join(ROOT, "perfbench", "mixes", f"{mix}.json")) as f:
+        spec = json.load(f)
+    p_lo, p_hi = (spec["prompt_tokens"][k] for k in ("lo", "hi"))
+    o_lo, o_hi = (spec["output_tokens"][k] for k in ("lo", "hi"))
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < B:
+        o = np.exp(rng.uniform(np.log(o_lo), np.log(o_hi)))
+        if rng.uniform() * o_hi > o:
+            continue
+        p = np.exp(rng.uniform(np.log(p_lo), np.log(p_hi)))
+        out.append(min(int(p + rng.uniform() * o), S - 1))
+    return np.array(out)
+
+
+def phase_decode_attention(da):
+    """``decode_attention`` against its plain version at every
+    DECODE_ATTN_SHAPES row within DECODE_ATTN_TOL, the planted fault
+    (:func:`split_left_out`) beyond it wherever a slot is deeper than a
+    split, two launches bitwise equal, one launch counted a call; then
+    kernel, plain version, SDPA (library, over the whole buffer with the
+    depth mask; never on the path) and bound (the attended K/V rows read
+    once) times at DECODE_ATTN_TIMED's rows."""
+    t0 = time.perf_counter()
+    check(da._launcher()[1] == DECODE_ATTN_SPLIT, "decode_attention split "
+          f"{da._launcher()[1]} != DECODE_ATTN_SPLIT")
+    rows = []
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, shape in enumerate(DECODE_ATTN_SHAPES):
+        dtype = shape[-1]
+        q, ck, cv, pos = decode_attention_inputs(shape, seed=i,
+                                                 device="cuda")
+        before = da.launches
+        out = da.decode_attention(q, ck, cv, pos)
+        out2 = da.decode_attention(q, ck, cv, pos)
+        ref = da.decode_attention_ref(q, ck, cv, pos)
+        torch.cuda.synchronize()
+        check(da.launches == before + 2, f"decode_attention launches "
+                                         f"{da.launches - before} != 2")
+        check(torch.equal(out, out2),
+              f"decode_attention not bitwise deterministic at {shape}")
+        check(bool(torch.isfinite(out).all()), f"non-finite at {shape}")
+        use = decode_attention_tol_use(out, ref, dtype)
+        row = {"shape": list(shape),
+               "max_abs_err": float((out.float() - ref.float()).abs().max()),
+               "tol_use": use}
+        check(use <= 1, f"decode_attention vs plain at {shape}: "
+                        f"{use} of DECODE_ATTN_TOL")
+        if int(pos.max()) >= DECODE_ATTN_SPLIT:
+            fault = split_left_out(q, ck, cv, pos)
+            row["fault_tol_use"] = decode_attention_tol_use(fault, ref,
+                                                            dtype)
+            row["fault_max_abs"] = float((fault.float() - ref.float())
+                                         .abs().max())
+            check(row["fault_tol_use"] > 1, f"DECODE_ATTN_TOL passes a "
+                  f"split left out at {shape}: {row}")
+        worst[dtype] = max(worst[dtype], row["max_abs_err"])
+        rows.append(row)
+        del q, ck, cv, out, out2, ref
+    timed = []
+    for i, (row, kind) in enumerate(DECODE_ATTN_TIMED):
+        shape = DECODE_ATTN_SHAPES[row]
+        B, S, H, KV, d, dtype = shape
+        depths = np.full(B, S - 1) if kind == "full" else \
+            mix_depths(B, S, kind, seed=i)
+        q, ck, cv, pos = decode_attention_inputs(shape, seed=100 + i,
+                                                 device="cuda",
+                                                 depths=depths)
+        kernel_us = device_time_us(
+            lambda: da.decode_attention(q, ck, cv, pos), (), FLASH_REPS)
+        plain_us = device_time_us(
+            lambda: da.decode_attention_ref(q, ck, cv, pos), (), FLASH_REPS)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, ck, cv))
+        mask = (torch.arange(S, device="cuda") <= pos[:, None])[:, None,
+                                                                None]
+        library_us = device_time_us(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), (),
+            FLASH_REPS)
+        bound_us, bound_by = bound(*decode_attention_cost(
+            H, KV, d, dtype, np.minimum(depths + 1, S)), dtype)
+        timed.append({"shape": list(shape), "depths": kind,
+                      "mean_depth": float(np.mean(depths)),
+                      "kernel_us": kernel_us, "plain_us": plain_us,
+                      "library_us": library_us, "bound_us": bound_us,
+                      "bound_by": bound_by,
+                      "bound_share": bound_us / kernel_us})
+        del q, ck, cv, qt, kt, vt
+    emit({"phase": "decode_attention", "kernel": "decode_attention",
+          "tol": DECODE_ATTN_TOL, "max_abs_err": worst, "shapes": rows,
+          "timed": timed, "seconds": time.perf_counter() - t0})
+    return timed, max(worst.values())
+
+
 def time_pair(fn, plain, reps=SCAN_REPS):
     return device_time_us(fn, (), reps), device_time_us(plain, (), reps)
 
@@ -1014,12 +1206,23 @@ def serve_config(arch):
                                                                     {}))
 
 
+def buffered_decode_layers(cfg) -> int:
+    """The layers of a decode step that attend through a K/V buffer, one
+    ``decode_attention`` launch each: every layer of a dense, vlm, moe or
+    audio decoder without MLA or a sliding window; none of an MLA, SSM or
+    hybrid model."""
+    buffered = (cfg.family in ("dense", "vlm", "moe", "audio")
+                and cfg.mla is None and not cfg.sliding_window)
+    return cfg.num_layers if buffered else 0
+
+
 def phase_serve(arch, kernel_mods):
     """Serve ``arch`` at full width in bfloat16, at full depth unless its
     spec cuts it (module doc). ``kernel_mods``: {kernel name: wrapper
     module}; the counts of the kernels of this path are set to 0 just
     before its counted run and read just after."""
     from repro_torch.models import build_model
+    from repro_torch.models import decode_graph as dg
     from repro_torch.models import prefill_graph as pg
     from repro_torch.serving import ServeEngine, pad_cache
     from repro_torch.serving.scheduler import ContinuousBatcher
@@ -1054,6 +1257,7 @@ def phase_serve(arch, kernel_mods):
     for mod in kernel_mods.values():
         mod.reset_launches()
     pg.reset_prefill_graph_stats()
+    dg.reset_decode_graph_stats()
     steps, bat_s = 0, None
     with PrefillTally(model) as tally:
         torch.cuda.synchronize()
@@ -1073,8 +1277,9 @@ def phase_serve(arch, kernel_mods):
             torch.cuda.synchronize()
             bat_s = time.perf_counter() - t2
             del batcher
-    graphs = pg.prefill_graph_stats()
+    graphs, dgraphs = pg.prefill_graph_stats(), dg.decode_graph_stats()
     launches = {n: mod.launches + graphs["launches"].get(n, 0)   # replays'
+                + dgraphs["launches"].get(n, 0)
                 for n, mod in kernel_mods.items()}
     peak = torch.cuda.max_memory_allocated()
 
@@ -1094,6 +1299,22 @@ def phase_serve(arch, kernel_mods):
         check(launches[name] == per * tally.calls,
               f"{arch}: {name} launches {launches[name]} != {per} x "
               f"{tally.calls} prefills")
+    # decode_attention: one launch a buffered layer in every decode step;
+    # the wrapper counts the eager steps and each graph's capture (which
+    # runs nothing), the stats the replays
+    per_layer = buffered_decode_layers(cfg)
+    decode_steps = dgraphs["eager"] + dgraphs["replays"]
+    eager_da = kernel_mods["decode_attention"].launches
+    replay_da = dgraphs["launches"].get("decode_attention", 0)
+    check(decode_steps == SERVE_NEW + steps and dgraphs["replays"] > 0,
+          f"{arch}: decode graph counts {dgraphs}, {steps} batcher steps")
+    check(eager_da == per_layer * (dgraphs["eager"] + dgraphs["captures"])
+          and replay_da == per_layer * dgraphs["replays"],
+          f"{arch}: decode_attention launches {eager_da} (eager, captures) "
+          f"and {replay_da} (replays) for {per_layer} a step, {dgraphs}")
+    launches["decode_attention"] = \
+        eager_da - per_layer * dgraphs["captures"] + replay_da
+    per_step = launches["decode_attention"] / decode_steps
     decode_s = gen_s - gen_prefill_s
 
     # --- checks against the plain versions and prefill (not counted) ---
@@ -1144,7 +1365,10 @@ def phase_serve(arch, kernel_mods):
            "prefill_calls": tally.calls, "prefill_tokens": tally.tokens,
            "prefill_seconds": tally.seconds,
            "prefill_graph": graphs,
+           "decode_graph": dgraphs,
            "launches": launches,
+           "decode_steps": decode_steps,
+           "decode_attention_per_step": per_step,
            "kernel_share_of_prefill_device_time": shares,
            "prefill_device_ms": prefill_device_ms,
            "kernel_vs_plain_logit_rel_err": kernel_vs_plain,
@@ -2446,6 +2670,7 @@ def main() -> int:
     from repro_torch.core import fleet
     from repro_torch.data.synthetic_covtype import make_covtype_like
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import loo_trials as loo
     from repro_torch.kernels import rglru_scan as rg
@@ -2462,7 +2687,7 @@ def main() -> int:
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
     mods = {"loo_trials": loo, "flash_attention": fa, "ssd_scan": ss,
-            "rglru_scan": rg}
+            "rglru_scan": rg, "decode_attention": da}
     libs = build.build(list(mods))
     for mod in mods.values():
         mod._launcher()
@@ -2480,7 +2705,8 @@ def main() -> int:
               f"{FLASH_TC_KERNEL}<{d}> spills: {rep}")
     for lib, names in (("ssd_scan", SSD_TC_KERNELS),
                        ("loo_trials", LOO_KERNELS),
-                       ("rglru_scan", RGLRU_KERNELS)):
+                       ("rglru_scan", RGLRU_KERNELS),
+                       ("decode_attention", DECODE_ATTN_KERNELS)):
         for name in names:
             rep = ptxas[lib].get(name)
             check(rep is not None, f"no ptxas report for {name}")
@@ -2491,6 +2717,7 @@ def main() -> int:
     rows, worst = phase_kernel(loo)
     step_rows, step_worst = phase_step(loo)
     flash_rows, flash_worst = phase_flash(fa)
+    decode_rows, decode_worst = phase_decode_attention(da)
     ssd_rows, ssd_worst = phase_ssd(ss)
     rglru_rows, rglru_worst = phase_rglru(rg)
 
@@ -2549,7 +2776,8 @@ def main() -> int:
     # 9.-16. serving, one model at a time: the counted main paths of
     # flash_attention, ssd_scan and rglru_scan
     served = {arch: phase_serve(arch, {n: mods[n] for n in
-                                       SERVES[arch]["per_prefill"]})
+                                       [*SERVES[arch]["per_prefill"],
+                                        "decode_attention"]})
               for arch in SERVES}
 
     # 17. the reduced configs, card against CPU
@@ -2621,7 +2849,12 @@ def main() -> int:
              max(r["max_abs_err"] for r in ssd_rows),
              served_launches("ssd_scan")),
         line("rglru_scan", rglru_rows[0], rglru_worst,
-             served_launches("rglru_scan"))]})
+             served_launches("rglru_scan")),
+        dict(line("decode_attention", decode_rows[0], decode_worst,
+                  served_launches("decode_attention"),
+                  decode_rows[0]["library_us"]),
+             launches_by_path={arch: out["decode_attention_per_step"]
+                               for arch, out in served.items()})]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

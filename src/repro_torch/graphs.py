@@ -28,8 +28,8 @@ from typing import Optional
 import torch
 from torch.utils._pytree import tree_leaves
 
-from repro_torch.kernels import flash_attention, loo_trials, rglru_scan, \
-    ssd_scan
+from repro_torch.kernels import decode_attention, flash_attention, \
+    loo_trials, rglru_scan, ssd_scan
 from repro_torch.sharding.partitioning import current_mesh
 from repro_torch.spans import span
 
@@ -86,6 +86,7 @@ def kernel_launches() -> dict:
     """{kernel: its wrapper's launch counter}; ``loo_trials`` counts both
     of its entry points, ``loo_trials_step`` the fused one."""
     return {"flash_attention": flash_attention.launches,
+            "decode_attention": decode_attention.launches,
             "ssd_scan": ssd_scan.launches,
             "rglru_scan": rglru_scan.launches,
             "loo_trials": loo_trials.launches,

@@ -18,11 +18,12 @@ its caller passes ``plain=True`` and attention runs
 kernel has no backward, as the Pallas kernel it replaces has none, so the
 training path is the one place where the device does not pick the kernel
 (ROADMAP Queue 1 item 9d); the route is the caller's argument, never a
-fallback on an error, grad mode or a global. Decode attention is
-:func:`chunked_attention` in torch ops, as in the reference, whose decode
-never reaches the Pallas kernel (its ``q_offset`` is static, decode
-positions are per sequence). Cross-attention and MLA attend through
-:func:`chunked_attention` in prefill too, as the reference does (MLA's
+fallback on an error, grad mode or a global. Buffered GQA decode attends
+through :func:`repro_torch.kernels.decode_attention.decode_attention` (a
+kernel of its own on the card; the reference's decode is plain einsums and
+never reaches the Pallas kernel, whose ``q_offset`` is static). The
+rolling window cache's decode attends through :func:`chunked_attention`;
+cross-attention and MLA do so in prefill too, as the reference does (MLA's
 q/k head dim differs from its v head dim, which the flash kernel does not
 take). Prefill attention runs inside a roofline region
 (:func:`repro_torch.roofline.trace.region`): a trace counts the work the

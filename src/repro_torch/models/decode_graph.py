@@ -44,7 +44,8 @@ Spans (:mod:`repro_torch.spans`, inside ``repro_torch.decode_step``):
 A replay runs no Python of the body, so the decode step's inner spans
 (``decode_attention``, ``moe.*``, ``ssd.decode``, ``head``) fire only on
 eager steps; their kernels still run, under their own names.
-:func:`decode_graph_stats` counts captures, replays and eager calls.
+:func:`decode_graph_stats` counts captures, replays, eager calls and the
+kernel launches the replays made.
 """
 from __future__ import annotations
 
@@ -57,15 +58,18 @@ import torch
 from repro_torch import graphs
 from repro_torch.spans import span
 
-_COUNTS = graphs.Counts(captures=0, capture_s=0.0, replays=0, eager=0)
+_COUNTS = graphs.Counts(captures=0, capture_s=0.0, replays=0, eager=0,
+                        launches={})
 count = _COUNTS.add
 
 
 def decode_graph_stats() -> dict:
     """Decode graphs captured (and seconds spent capturing them), replays
-    (the capturing call's own included) and decode steps run eagerly (the
+    (the capturing call's own included), decode steps run eagerly (the
     warm-up call of each key, and every call :func:`refusal` turned
-    away), since the last reset."""
+    away) and ``launches``, {kernel: launches the replays made} (the
+    kernel wrappers' own counters see a graph's launches once, at its
+    capture, which runs nothing), since the last reset."""
     return _COUNTS.read()
 
 
@@ -113,17 +117,18 @@ class DecodeGraph:
         self.leaves = tuple(weakref.ref(t, drop) for t in cache.values())
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tokens = self.pos = self.logits = None
+        self.launches: dict = {}
 
     def capture(self, body, cache, tokens, pos) -> None:
         """Capture the body over static ``tokens`` and ``pos`` on the side
-        stream; nothing runs."""
+        stream, noting the kernel launches it holds; nothing runs."""
         t0 = time.perf_counter()
         dev = next(iter(cache.values())).device
         shape, dtype = _signature(pos)
         self.tokens = torch.empty(tokens.shape, dtype=tokens.dtype,
                                   device=dev)
         self.pos = torch.empty(shape, dtype=dtype, device=dev)
-        self.graph, (self.logits, _), _ = graphs.capture(
+        self.graph, (self.logits, _), self.launches = graphs.capture(
             lambda: body(cache, self.tokens, self.pos), dev,
             span_name="repro_torch.decode_graph.capture")
         count(captures=1, capture_s=time.perf_counter() - t0)
@@ -139,5 +144,5 @@ class DecodeGraph:
                 self.pos.fill_(int(pos))
             self.graph.replay()
             logits = self.logits.clone()
-        count(replays=1)
+        count(replays=1, launches=self.launches)
         return logits

@@ -74,6 +74,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import graphs, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models import (
     blocks, decode_graph, prefill_graph, rglru, ssd,
 )
@@ -249,16 +250,20 @@ def _positions(pos, batch):
 
 def _gqa_decode_buffered(p, x, ck, cv, cfg, pos):
     """Decode against a fixed-size buffer: write at ``pos`` (in place),
-    mask > pos. The span ``repro_torch.decode_attention``."""
+    attend to the positions up to ``pos``
+    (:func:`~repro_torch.kernels.decode_attention.decode_attention`: the
+    kernel on the card, which reads the buffer only that far). DTensor
+    buffers attend as a manual region (``blocks._localize``). The span
+    ``repro_torch.decode_attention``."""
     with span("repro_torch.decode_attention"):
         q, k_new, v_new = blocks.gqa_project_qkv(p, x, cfg)
         posb = _positions(pos, x.shape[0])
         q = blocks.apply_rope(q, posb, cfg.rope_theta)
         k_new = blocks.apply_rope(k_new, posb, cfg.rope_theta)
-        k = _write_at(ck, k_new, pos)
-        v = _write_at(cv, v_new, pos)
-        out = chunked_attention(q, k, v, causal=True,
-                                window=cfg.sliding_window, q_offset=pos)
+        q, k, v, back = blocks._localize(q, _write_at(ck, k_new, pos),
+                                         _write_at(cv, v_new, pos))
+        out = back(decode_attention(q, k, v, pos,
+                                    window=cfg.sliding_window))
         return out_proj(out, p["wo"])
 
 

@@ -95,6 +95,16 @@ def mla_attention_cost(shape):
     return nbytes, 2 * (d_qk + d_v) * B * H * pairs
 
 
+def decode_attention_cost(H, KV, d, dtype, keys):
+    """(bytes, flops) of one decode step's attention: q read and o
+    written once, and each slot's attended K/V rows read once (``keys``:
+    the number of keys of each slot, up to its position), never the
+    buffer beyond them; 2·2·d operations per (head, attended key)."""
+    item = 2 if dtype == "bfloat16" else 4
+    n = int(np.sum(keys))
+    return item * d * (2 * KV * n + 2 * H * len(keys)), 4 * H * d * n
+
+
 def rglru_cost(shape):
     """(bytes, flops): a and b read once, h written once, float32; one FMA
     per element. ``shape`` is (B, S, W)."""

@@ -64,7 +64,8 @@ def test_cpu_decode_never_captures(arch, changes):
     for k in cache:
         assert torch.equal(cache[k], ref_cache[k])
     assert dg.decode_graph_stats() == {"captures": 0, "capture_s": 0.0,
-                                       "replays": 0, "eager": NEW}
+                                       "replays": 0, "eager": NEW,
+                                       "launches": {}}
     assert model._decode_graph is None
 
 
