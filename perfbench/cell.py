@@ -84,7 +84,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
     c = registry.config(cell["config"], root)
     mix = registry.mix(cell["traffic"], root)
     limits = registry.limits(name, root)
-    ref = registry.reference(c["family"], root)
+    ref = registry.reference_of(c, root)
     dtype = getattr(torch, c["dtype"])
     leaves = ref.leaves(c)
     on_card = torch.device(device).type == "cuda"

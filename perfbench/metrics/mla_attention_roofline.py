@@ -4,9 +4,9 @@ launched under the program's ``repro_torch.attention`` region inside
 ``repro_torch.prefill``. A prefill of S tokens attends once per layer at
 shape (1, heads, S, S, qk_nope + qk_rope, v_head_dim), causal; its bound
 is the frozen mla_attention_cost at the card's peaks
-(perfbench.yardstick_mla, perfbench.yardstick). Reads a
-perfbench.spans.SpanProfile; nothing from a plain Profile."""
-from perfbench import yardstick, yardstick_mla
+(perfbench.yardstick). Reads a perfbench.spans.SpanProfile; nothing
+from a plain Profile."""
+from perfbench import yardstick
 
 
 def read(run):
@@ -18,7 +18,7 @@ def read(run):
     if not n or dev <= 0:
         return None
     d_qk = c["qk_nope_head_dim"] + c["qk_rope_head_dim"]
-    us = sum(yardstick.bound(*yardstick_mla.mla_attention_cost(
+    us = sum(yardstick.bound(*yardstick.mla_attention_cost(
         (1, c["num_attention_heads"], S, S, d_qk, c["v_head_dim"], True,
          c["dtype"])), c["dtype"])[0]
         for S in p.prefill_lens) * c["num_hidden_layers"]

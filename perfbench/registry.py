@@ -3,7 +3,8 @@
 * a configuration: ``configs/<name>.json``
 * a traffic mix: ``mixes/<name>.json``
 * the limits of a cell's comparison: ``limits/<cell>.json``
-* a family's plain reference: ``reference/<family>.py``
+* a configuration's plain reference: ``reference/<name>.py``, ``name``
+  the file's ``reference`` key, else its ``family``
 * a metric's reader: ``metrics/<name>.py``, or, where that file is
   missing, ``metrics/<the name up to its first dot>.py``, so that a
   quantity split by the end-to-end metric it moves (``mfu.chat``,
@@ -56,11 +57,19 @@ def _module(path: Path, tag: str):
     return mod
 
 
-def reference(family: str, root=ROOT):
-    path = _path(root, "reference", family, ".py")
+def reference(name: str, root=ROOT):
+    """The plain reference module ``reference/<name>.py``."""
+    path = _path(root, "reference", name, ".py")
     if not path.exists():
-        raise FileNotFoundError(f"no reference for family {family!r}")
+        raise FileNotFoundError(f"no reference named {name!r} ({path})")
     return _module(path, "reference")
+
+
+def reference_of(c: dict, root=ROOT):
+    """The plain reference that judges configuration file ``c``: the one
+    its ``reference`` key names, else its ``family``'s. The harness finds
+    a configuration's reference only through this."""
+    return reference(c.get("reference", c["family"]), root)
 
 
 def metric(name: str, root=ROOT):

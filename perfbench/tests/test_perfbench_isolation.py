@@ -56,7 +56,8 @@ def test_reference_loads_nothing_of_the_program():
     out = run_py(
         "import sys, torch\n"
         "from perfbench import registry\n"
-        "for f in ('moe', 'ssm'): registry.reference(f)\n"
+        "for n in ('olmoe-1b-7b', 'mamba2-1.3b', 'minicpm3-4b'):\n"
+        "    registry.reference_of(registry.config(n))\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}))")
     assert out.returncode == 0, out.stderr
     loaded = set(json.loads(out.stdout.strip().replace("'", '"')))

@@ -20,7 +20,7 @@ def tiny(name, **more):
 @pytest.mark.parametrize("S", [37, 64])
 def test_reference_matches_the_port(name, S):
     c = tiny(name)
-    ref = registry.reference(c["family"])
+    ref = registry.reference_of(c)
     w = weights.make(ref.leaves(c), 5, torch.float32, "cpu")
     from repro_torch.models.model import Model
     from repro_torch.serving.cache_utils import pad_cache
@@ -43,7 +43,7 @@ def test_reference_cache_entries_are_the_ports(S):
     """The keys and values the attention reference gives at decode
     positions are what the port's decode steps write into its cache."""
     c = tiny("olmoe-1b-7b")
-    ref = registry.reference(c["family"])
+    ref = registry.reference_of(c)
     w = weights.make(ref.leaves(c), 7, torch.float32, "cpu")
     from repro_torch.models.model import Model
     from repro_torch.serving.cache_utils import pad_cache
@@ -65,7 +65,7 @@ def test_reference_cache_entries_are_the_ports(S):
 @pytest.mark.parametrize("name", ["olmoe-1b-7b", "mamba2-1.3b"])
 def test_control_reads_lower_precision(name):
     c = tiny(name)
-    ref = registry.reference(c["family"])
+    ref = registry.reference_of(c)
     w = weights.make(ref.leaves(c), 6, torch.float32, "cpu")
     toks = torch.randint(0, 250, (80,), generator=torch.Generator()
                          .manual_seed(1))
@@ -102,7 +102,7 @@ def test_leaves_are_the_ports_template():
     from repro_torch.sharding.partitioning import flatten
     for name in TINY:
         c = tiny(name)
-        ref = registry.reference(c["family"])
+        ref = registry.reference_of(c)
         model = Model(program.port_config(c), device="meta")
         want = {p: tuple(s.shape) for p, s in flatten(model.template())}
         assert {p: tuple(s) for p, (s, _) in ref.leaves(c).items()} == want

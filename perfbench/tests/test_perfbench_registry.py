@@ -6,7 +6,30 @@ import shutil
 import pytest
 
 from perfbench import registry
-from perfbench.tests.conftest import bench
+from perfbench.tests.conftest import TINY_DIR, bench
+
+# What each cell reports (its end-to-end metrics, its per-layer metrics)
+# and the reference that judges it, as the benchmark has them
+CELLS = {
+    "olmoe-1b-7b.long-prompt": (
+        ["prompt_tokens_per_s", "ttft_p95_ms", "setup_s"],
+        ["prefill_ms_per_ktok.long-prompt", "mfu.long-prompt",
+         "flash_attention_roofline", "device_idle.long-prompt"], "moe.py"),
+    "mamba2-1.3b.long-prompt": (
+        ["prompt_tokens_per_s", "ttft_p95_ms", "setup_s"],
+        ["prefill_ms_per_ktok.long-prompt", "mfu.long-prompt",
+         "ssd_scan_roofline", "device_idle.long-prompt"], "ssm.py"),
+    "olmoe-1b-7b.chat": (
+        ["output_tokens_per_s", "ttft_p95_ms", "itl_p95_ms", "setup_s"],
+        ["decode_step_ms.chat", "mfu.chat", "device_idle.chat"], "moe.py"),
+    "mamba2-1.3b.chat": (
+        ["output_tokens_per_s", "ttft_p95_ms", "itl_p95_ms", "setup_s"],
+        ["decode_step_ms.chat", "mfu.chat", "device_idle.chat"], "ssm.py"),
+    "minicpm3-4b.chat": (
+        ["output_tokens_per_s", "ttft_p95_ms", "setup_s"],
+        ["decode_step_ms.chat", "device_idle.chat", "mla_mfu.chat"],
+        "dense.py"),
+}
 
 
 def test_every_name_in_the_benchmark_resolves():
@@ -15,7 +38,7 @@ def test_every_name_in_the_benchmark_resolves():
         c = registry.config(cfg["name"])
         assert c["name"] == cfg["name"]
         assert cfg["file"] == f"perfbench/configs/{cfg['name']}.json"
-        registry.reference(c["family"])
+        registry.reference_of(c)
     for w in b["workloads"]:
         registry.mix(w["traffic"])
         limits = registry.limits(w["name"])
@@ -36,6 +59,56 @@ def test_each_cell_reports_setup_a_rate_and_a_layer_metric():
     lp = {m["name"] for m in registry.cell_metrics(
         b, "olmoe-1b-7b.long-prompt", True)}
     assert "flash_attention_roofline" in lp and "ssd_scan_roofline" not in lp
+
+
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_each_cell_keeps_its_metrics_and_reference(cell):
+    e2e, layer, ref = CELLS[cell]
+    b = bench()
+    assert [m["name"] for m in registry.cell_metrics(b, cell, False)] == e2e
+    assert [m["name"] for m in registry.cell_metrics(b, cell, True)] == layer
+    w = next(w for w in b["workloads"] if w["name"] == cell)
+    c = registry.config(w["config"])
+    assert registry.reference_of(c).__file__ == \
+        str(registry.ROOT / "reference" / ref)
+
+
+def test_a_configuration_names_its_reference(tmp_path):
+    """``reference`` in a configuration file names the module; without
+    the key the family does; a name with no file raises."""
+    (tmp_path / "reference").mkdir()
+    (tmp_path / "reference" / "mla_dense.py").write_text("KIND = 'mla'\n")
+    (tmp_path / "reference" / "dense.py").write_text("KIND = 'dense'\n")
+    c = dict(registry.config("minicpm3-4b"))
+    assert registry.reference_of(c, tmp_path).KIND == "dense"
+    assert registry.reference_of(dict(c, reference="mla_dense"),
+                                 tmp_path).KIND == "mla"
+    with pytest.raises(FileNotFoundError):
+        registry.reference_of(dict(c, reference="absent"), tmp_path)
+    with pytest.raises(ValueError):
+        registry.reference_of(dict(c, reference="../dense"), tmp_path)
+
+
+def test_every_cell_has_a_tiny_size():
+    """Each configuration, mix and cell of the benchmark has its overlay
+    under ``tests/tiny``, so that no CPU test runs a published width; an
+    overlay names only what the benchmark has, and its limits only the
+    numbers the committed limits name."""
+    b = bench()
+    want = {"configs": {w["config"] for w in b["workloads"]},
+            "mixes": {w["traffic"] for w in b["workloads"]},
+            "limits": {w["name"] for w in b["workloads"]}}
+    for kind, names in want.items():
+        have = {p.stem for p in (TINY_DIR / kind).glob("*.json")}
+        assert have == names, kind
+    for cell in want["limits"]:
+        tiny = json.loads((TINY_DIR / "limits" / f"{cell}.json").read_text())
+        assert set(tiny) == set(registry.limits(cell))
+    for name in want["configs"]:
+        c = registry.config(name)
+        tiny = json.loads((TINY_DIR / "configs" / f"{name}.json")
+                          .read_text())
+        assert set(tiny) <= set(c) and tiny["hidden_size"] <= 128
 
 
 def test_a_new_file_is_found_without_an_edit(tmp_path):

@@ -44,7 +44,7 @@ NESTED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+@pytest.mark.parametrize("name", sorted(NESTED))
 def test_one_step_yields_every_span_nested(name):
     """One ``ContinuousBatcher.step`` that refills every slot and decodes
     them, under a CPU profiler: each span of the family, inside the
@@ -53,7 +53,7 @@ def test_one_step_yields_every_span_nested(name):
     c.update(TINY[name])
     mix = registry.mix("chat")
     mix.update(TINY_MIX["chat"])
-    w = wts.make(registry.reference(c["family"]).leaves(c), 3,
+    w = wts.make(registry.reference_of(c).leaves(c), 3,
                  getattr(torch, c["dtype"]), "cpu")
     model, batcher, request_cls = program.build(c, w, mix, "cpu")
     loop = ClosedLoop(batcher, request_cls, Traffic(mix, 3), mix["clients"])
